@@ -1,0 +1,194 @@
+"""Layer builders ``F(D) → Θ`` (paper §5.2, §A.1), as plain functions.
+
+  * ``GStep(p, λ)``  — greedy step packing: start a new constant piece when
+    ``y⁺_i − b_k > λ``; pack ``p`` pieces per node.
+  * ``GBand(λ)``     — greedily extend a linear band while its width stays
+    ``≤ λ`` (band through the group's first/last key-position points).
+  * ``EBand(λ)``     — group pairs into equal-size position ranges and fit
+    one band per group.
+
+GStep and EBand are fully vectorized: the greedy grouping recurrence is
+solved exactly with a jump table and frontier-doubling orbit extraction.
+GBand keeps the paper's greedy semantics with a galloping feasibility
+search per emitted node.  All builders assume non-overlapping, sorted
+position ranges — true for data layers and all outlines.  Host-side numpy,
+bit-identical to the JAX package's ``repro.core.builders``.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .keyset import KeyPositions, POS_DTYPE
+from .nodes import BandLayer, StepLayer
+
+_DELTA_SAFETY = 1.0  # absorbs float64 rounding so Eq.(1) holds bit-exactly
+
+
+def greedy_partition(lo: np.ndarray, hi: np.ndarray, lam: float,
+                     switch: int = 8192) -> np.ndarray:
+    """Greedy grouping of sorted ranges: group starting at ``s`` absorbs
+    items while ``hi[i] − lo[s] ≤ λ``.  Returns group start indices
+    (including 0), the exact greedy boundaries of paper §A.1 (1).
+
+    ``jump[s] = first i with hi[i] > lo[s] + λ`` is a monotone map; the
+    greedy boundaries are the orbit of 0 under ``jump``.  Few groups are
+    walked boundary to boundary; past ``switch`` groups the rest of the
+    orbit is extracted by frontier doubling in O(log G) vectorized rounds.
+    ``switch`` only affects speed, never the boundaries.
+    """
+    n = len(lo)
+    if n == 0:
+        return np.zeros(1, dtype=np.int64)
+    lam = np.float64(lam)
+
+    hi_f = hi if hi.dtype == np.float64 else hi.astype(np.float64)
+    lo_f = lo if lo.dtype == np.float64 else lo.astype(np.float64)
+    walk = [0]
+    s = 0
+    while len(walk) <= switch:
+        nxt = int(np.searchsorted(hi_f, lo_f[s] + lam, side="right"))
+        nxt = min(max(nxt, s + 1), n)
+        if nxt >= n:
+            return np.asarray(walk, dtype=np.int64)
+        walk.append(nxt)
+        s = nxt
+
+    # many groups: full jump table, orbit seeded from the walk's last
+    # boundary (the doubling invariant needs a single seed point)
+    targets = lo_f + lam
+    jump = np.searchsorted(hi_f, targets, side="right").astype(np.int64)
+    idx = np.arange(n, dtype=np.int64)
+    jump = np.maximum(jump, idx + 1)          # ≥ one item per group
+    jump = np.minimum(jump, n)
+    jump = np.append(jump, n)                 # absorbing state
+    orbit = np.asarray([s], dtype=np.int64)
+    while orbit[-1] < n:
+        nxt = jump[orbit]
+        orbit = np.concatenate([orbit, nxt])
+        if orbit[-1] >= n and np.all(nxt >= n):
+            break
+        jump = jump[jump]                     # square the jump map
+    orbit = orbit[orbit < n]
+    return np.concatenate([np.asarray(walk[:-1], dtype=np.int64),
+                           np.unique(orbit)])
+
+
+def check_disjoint(D: KeyPositions) -> None:
+    """Builder precondition: non-overlapping sorted position ranges."""
+    if D.n > 1:
+        assert np.all(D.hi[:-1] <= D.lo[1:]), (
+            "builders require non-overlapping position ranges")
+
+
+def gstep_from_starts(D: KeyPositions, starts: np.ndarray, p: int) -> StepLayer:
+    """A step layer from precomputed greedy piece boundaries."""
+    piece_keys = D.keys[starts]
+    piece_pos = np.empty(len(starts) + 1, dtype=POS_DTYPE)
+    piece_pos[:-1] = D.lo[starts]
+    piece_pos[-1] = D.hi[-1]
+    P = len(starts)
+    node_off = np.arange(0, P, p, dtype=np.int64)
+    node_off = np.append(node_off, P)
+    return StepLayer(piece_keys=piece_keys, piece_pos=piece_pos,
+                     node_piece_off=node_off)
+
+
+def build_gstep(D: KeyPositions, p: int, lam: float) -> StepLayer:
+    """Greedy step builder (paper §A.1 (1)) — exact, fully vectorized."""
+    check_disjoint(D)
+    starts = greedy_partition(D.lo_f, D.hi_f, lam)      # piece start indices
+    return gstep_from_starts(D, starts, p)
+
+
+def fit_bands_for_groups(D: KeyPositions, starts: np.ndarray) -> BandLayer:
+    """Fit one band per group (line through first/last midpoints, width =
+    max residual + safety).  Vectorized with segment reductions."""
+    ends = np.append(starts[1:], D.n)
+    first, last = starts, ends - 1
+    mid = D.mid_f
+    x1 = D.keys[first]
+    y1 = mid[first]
+    dx = D.keys_f[last] - D.keys_f[first]
+    dy = mid[last] - mid[first]
+    m = np.where(dx > 0, dy / np.maximum(dx, 1.0), 0.0)
+    gid = np.repeat(np.arange(len(starts)), ends - starts)
+    line = y1[gid] + m[gid] * (D.keys_f - x1[gid].astype(np.float64))
+    resid = np.maximum(line - D.lo_f, D.hi_f - line)
+    delta = np.maximum.reduceat(resid, starts) + _DELTA_SAFETY
+    return BandLayer(
+        node_keys=D.keys[first].astype(np.uint64),
+        x1=D.keys[first].astype(np.uint64),
+        y1=np.rint(y1).astype(POS_DTYPE),
+        m=m,
+        delta=delta + 1.0,  # covers the rint() on y1
+        clamp_lo=int(D.lo[0]),
+        clamp_hi=int(D.hi[-1]),
+    )
+
+
+def _eband_starts(D: KeyPositions, lam: float) -> np.ndarray:
+    lam = max(float(lam), 1.0)
+    cell = ((D.lo_f - float(D.lo[0])) // lam).astype(np.int64)
+    return np.flatnonzero(np.diff(cell, prepend=cell[0] - 1))
+
+
+def build_eband(D: KeyPositions, lam: float) -> BandLayer:
+    """Equal-position-range band builder (paper §A.1 (3)) — vectorized.
+    Groups by the position grid ``⌊(y⁻ − y⁻_0)/λ⌋``."""
+    check_disjoint(D)
+    return fit_bands_for_groups(D, _eband_starts(D, lam))
+
+
+def _gband_starts(D: KeyPositions, lam: float) -> np.ndarray:
+    n = D.n
+    keys_f = D.keys_f
+    lo_f = D.lo_f
+    hi_f = D.hi_f
+    mid = D.mid_f
+    half = 0.5 * float(lam)
+
+    def feasible(s: int, e: int) -> bool:
+        """Band through midpoints of s and e−1 has width 2δ ≤ λ?"""
+        if e - s <= 1:
+            return True
+        dx = keys_f[e - 1] - keys_f[s]
+        m = (mid[e - 1] - mid[s]) / dx if dx > 0 else 0.0
+        line = mid[s] + m * (keys_f[s:e] - keys_f[s])
+        resid = np.maximum(line - lo_f[s:e], hi_f[s:e] - line)
+        return float(resid.max()) + _DELTA_SAFETY <= half
+
+    starts = [0]
+    s = 0
+    guess = 64
+    while True:
+        # gallop to bracket the maximal feasible end
+        step = max(guess, 2)
+        e_ok = s + 1
+        e = min(s + step, n)
+        while e > e_ok and feasible(s, e):
+            e_ok = e
+            if e == n:
+                break
+            step *= 4
+            e = min(s + step, n)
+        # binary search in (e_ok, e)
+        bad = e if e > e_ok else e_ok
+        while bad - e_ok > 1:
+            probe = (e_ok + bad) // 2
+            if feasible(s, probe):
+                e_ok = probe
+            else:
+                bad = probe
+        guess = e_ok - s
+        if e_ok >= n:
+            break
+        starts.append(e_ok)
+        s = e_ok
+    return np.asarray(starts, dtype=np.int64)
+
+
+def build_gband(D: KeyPositions, lam: float) -> BandLayer:
+    """Greedy band builder (paper §A.1 (2)): extend each group while the
+    band width ``2δ`` stays ≤ λ."""
+    check_disjoint(D)
+    return fit_bands_for_groups(D, _gband_starts(D, lam))

@@ -1,0 +1,4 @@
+"""Hand-written Hopper kernels of the PyTorch port, each beside its plain
+PyTorch version."""
+
+__all__: list = []

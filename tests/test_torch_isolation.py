@@ -1,0 +1,154 @@
+"""The port stands alone: no import of ``jax`` or ``repro`` anywhere in
+``src/repro_torch`` or ``chip_smoke.py``; every module imports with jax
+blocked; entry points run on the card unless the caller names the CPU,
+and the kernel path has no fallback (a CPU tensor never reaches the
+kernel, a failed build raises, a missing card raises)."""
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import KeyPositions, write_index
+from repro_torch.kernels import fused_descent as fd
+from repro_torch.kernels.fused_descent import kernel as K
+from repro_torch.serve import IndexService, demo_serving_design
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_repro_import(path):
+    bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
+    assert bad == [], f"{path} imports {bad}"
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    names = ["repro_torch"] + [
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+    assert "repro_torch.serve.index_service" in names
+    code = ("import sys, importlib\n"
+            "for blocked in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[blocked] = None\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "print('imported', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout
+
+
+@pytest.fixture(scope="module")
+def small_index(tmp_path_factory):
+    keys = np.unique(np.random.default_rng(1).integers(
+        1, 2**30, 20_000).astype(np.uint64))
+    path = str(tmp_path_factory.mktemp("iso") / "idx.air")
+    write_index(path, demo_serving_design(KeyPositions.fixed_record(keys, 16)),
+                page_bytes=4096)
+    return path, keys
+
+
+def test_entry_points_need_a_card_unless_told_otherwise(small_index,
+                                                        monkeypatch):
+    path, keys = small_index
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IndexService(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fd.FusedDescent(fd.pack_prefix(
+            [{"kind": "step", "keys": keys[:4], "pos_lo": np.arange(4),
+              "pos_hi": np.arange(1, 5)}]))
+    with IndexService(path, device="cpu") as svc:
+        assert svc.device.type == "cpu" and svc.device_active
+        assert svc.lookup(keys[:10]).shape == (10, 2)
+        assert svc.stats.device_batches == 1
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
+    planes = fd.pack_prefix([{"kind": "step",
+                              "keys": np.arange(0, 400, 4, dtype=np.uint64),
+                              "pos_lo": np.arange(100) * 8,
+                              "pos_hi": np.arange(1, 101) * 8}])
+    mod = fd.FusedDescent(planes, device="cpu")
+    q = torch.arange(0, 500, 3, dtype=torch.int32)
+    before = K.launches()
+    lo, hi = mod(q)                        # CPU tensor: the plain version
+    assert lo.shape == (1, len(q)) and K.launches() == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fused_descent_cuda(q, *(getattr(mod, n) for n in fd.ops.PLANES))
+    with pytest.raises(ValueError):
+        mod(q.to("meta"))
+    assert K.launches() == before
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(K, "_lib", None)
+    monkeypatch.setattr(K, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(K, "_nvcc", lambda: shutil.which("false") or "false")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        K.build()
+    monkeypatch.undo()
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K._nvcc()
+
+
+def test_build_is_keyed_by_the_source(tmp_path, monkeypatch):
+    first = K.library_path()
+    assert first.parent.parent == K.BUILD_ROOT
+    assert K.BUILD_ROOT.parts[-2:] == ("build", "repro_torch")
+    src = tmp_path / "fused_descent.cu"
+    src.write_bytes(K.SOURCE.read_bytes() + b"\n// edited\n")
+    monkeypatch.setattr(K, "SOURCE", src)
+    assert K.library_path() != first
+
+
+def _run_chip_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _run_chip_smoke(REPO)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = _run_chip_smoke(str(tmp_path))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

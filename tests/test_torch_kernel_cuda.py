@@ -1,0 +1,84 @@
+"""The hand-written fused descent kernel on the card, against its plain
+PyTorch version on the same inputs (numpy seeds).  Tolerance: none — the
+kernel forbids FMA contraction, so it equals the plain version bit for
+bit.  Needs an NVIDIA card: run there with ``PYTHONPATH=src python -m
+pytest -m cuda tests/test_torch_kernel_cuda.py``; skips on a machine
+without one.  It imports only the port, so it runs where jax is not
+installed."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fused_descent as fd
+from repro_torch.kernels.fused_descent import kernel as K
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    return torch.device("cuda")
+
+
+def _prefix(rng, L, P, mixed):
+    layers = []
+    for l in range(L):
+        n = int(rng.integers(P - 127, P + 1))
+        keys = np.concatenate([[1], np.sort(rng.choice(
+            np.arange(2, 2**31 - 2, 9973), n - 1, replace=False))])
+        if mixed and l % 2:
+            # a fitted band layer: each node's line runs to the next node's
+            # position, and positions (byte offsets into the layer below)
+            # stay under 2^24, the regime band_f32_slack bounds.  A line
+            # that climbs far above its own y1 can round past the slack;
+            # the disk walk then extends the missed window.
+            y1 = np.sort(rng.integers(0, 2**24, n)).astype(np.float64)
+            x_next = np.append(keys[1:], 2**31 - 1).astype(np.float64)
+            y_next = np.append(y1[1:], 2.0**24)
+            layers.append({"kind": "band", "x1": keys.astype(np.uint64),
+                           "y1": y1, "m": (y_next - y1) / (x_next - keys),
+                           "delta": rng.uniform(1, 600, n)})
+        else:
+            pos = np.sort(rng.integers(0, 2**30, n + 1))
+            layers.append({"kind": "step", "keys": keys.astype(np.uint64),
+                           "pos_lo": pos[:-1], "pos_hi": pos[1:]})
+    return layers
+
+
+@pytest.mark.parametrize("L,mixed", [(1, False), (2, True), (4, True)])
+@pytest.mark.parametrize("P", [128, 640, 4096])
+def test_kernel_equals_plain_version(card, L, mixed, P):
+    rng = np.random.default_rng(L * 10_000 + P)
+    layers = _prefix(rng, L, P, mixed)
+    mod = fd.FusedDescent(fd.pack_prefix(layers), device=card)
+    for Q in (1, 255, 4097):
+        q = rng.integers(1, 2**31 - 2, Q).astype(np.uint64)
+        qt = torch.from_numpy(q.astype(np.int32)).to(card)
+        before = K.launches()
+        lo, hi = mod(qt)
+        torch.cuda.synchronize()
+        assert K.launches() == before + 1
+        plo, phi = fd.fused_descent_torch(mod.planes(), qt)
+        assert torch.equal(lo, plo) and torch.equal(hi, phi)
+        rlo, rhi = fd.fused_descent_ref(layers, q)
+        for r, lay in enumerate(layers):
+            klo, khi = lo[r].cpu().numpy(), hi[r].cpu().numpy()
+            if lay["kind"] == "step":
+                np.testing.assert_array_equal(klo, rlo[r])
+                np.testing.assert_array_equal(khi, rhi[r])
+            else:
+                assert np.all(klo <= rlo[r]) and np.all(khi >= rhi[r])
+
+
+def test_kernel_rejects_what_it_does_not_take(card):
+    planes = fd.pack_prefix(_prefix(np.random.default_rng(0), 1, 128, False))
+    mod = fd.FusedDescent(planes, device=card)
+    with pytest.raises(ValueError):
+        mod(torch.arange(4, dtype=torch.int64, device=card))
+    planes_t = [getattr(mod, n) for n in fd.ops.PLANES]
+    with pytest.raises(ValueError):
+        K.fused_descent_cuda(torch.arange(4, dtype=torch.int32, device=card),
+                             *planes_t[:1], planes_t[1].float(),
+                             *planes_t[2:])
