@@ -1,34 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving and tuning paths on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--draws 230000000]
+                          [--tune-draws 21000000]
 
 Phases (none catches its own failure; any failure exits non-zero):
 
 1. Card: name and power limit from ``nvidia-smi``.
-2. Build: compile the fused descent kernel from ``src/repro_torch/csrc``.
-3. Kernel against its plain version: random packed prefixes (L in 1/2/4,
-   step-only and mixed, P in 128/640/1664/4096, Q in 1/255/256/4097/65536);
-   the kernel must equal ``fused_descent_torch`` on the card bit for bit,
-   step rows must equal the float64 walk and band rows must contain it.
-4. The main path at a deployment's size: ~200 M unique int32-domain keys
-   from the paper's §7.1 100-cluster Gaussian mixture, 16-byte records,
-   a gstep(8, 4096) <- gband(1024) <- gstep(8, 4096) index written paged
-   with CRCs, served by ``IndexService`` on the card (two resident layers,
-   a 1 MiB + 8 MiB block cache, a two-deep prefetch pipeline) over a
-   uniform and a Zipf(1.1) stream of 256 batches x 4096 keys.  Every range
-   must contain its key's record, equal the numpy backend's ranges, and a
-   2,000-key sample must equal ``SerializedIndex.lookup``.
-5. Numbers: sizes, build/generation times, per-stream qps, lookup wall,
-   descent seconds, roofline and hit rate, and the kernel's time per launch
-   beside its plain version and its bytes bound.
+2. Build: compile both kernels from ``src/repro_torch/csrc`` through the
+   shared build helper, one ``nvcc`` per source, started together; print
+   each kernel's ptxas registers, shared memory and spills.
+3. Fused descent against its plain version: random packed prefixes (L in
+   1/2/4, step-only and mixed, P in 128/640/1664/4096, Q in
+   1/255/256/4097/65536); the kernel must equal ``fused_descent_torch`` on
+   the card bit for bit, step rows must equal the float64 walk and band
+   rows must contain it.
+4. Candidate scoring against its plain version: C in 1/7/8/39/300, S in
+   1/127/128/4097/65536/65574/131072, W ~ U[16, 1e6], weights ~ U[0.5, 4],
+   under the affine coefficients of azure_ssd, azure_nfs, a 50%-hit
+   CachedProfile over azure_ssd and a p99 (w = 1) ObjectiveProfile over
+   azure_ssd; the kernel must match ``affine_scores_torch`` to rtol 1e-5
+   and the float64 oracle to rtol 3e-5.
+5. The serving path at a deployment's size: ~200 M unique int32-domain
+   keys from the paper's §7.1 100-cluster Gaussian mixture, 16-byte
+   records, a gstep(8, 4096) <- gband(1024) <- gstep(8, 4096) index
+   written paged with CRCs, served by ``IndexService`` on the card (two
+   resident layers, a 1 MiB + 8 MiB block cache, a two-deep prefetch
+   pipeline) over a uniform and a Zipf(1.1) stream of 256 batches x 4096
+   keys.  Every range must contain its key's record, equal the numpy
+   backend's ranges, and a 2,000-key sample must equal
+   ``SerializedIndex.lookup``.
+6. The tuning path: ~20 M keys of the same mixture (cut from ~200 M by the
+   run's time limit), one shared ``LayerCache``; ``airtune(k=5)`` and
+   ``beam_search(k=5)`` over the default builders for azure_ssd,
+   azure_nfs and azure_hdd, and ``airtune`` with the p99 (w = 1)
+   objective on azure_ssd, each ranking on the card; each again with
+   ``score_backend="numpy"``, whose cost must agree to rel 1e-6.  The
+   azure_ssd design is written paged and 64 batches x 4096 uniform keys
+   are served from it on the card with every layer that packs resident:
+   ranges must contain their records and equal the numpy backend's.
+7. Numbers: sizes, build/generation times, per-stream qps, lookup wall,
+   descent seconds, roofline and hit rate; per tune its wall, sweep
+   seconds, stats and the device ranking's copy/kernel/readback split;
+   each kernel's time per launch beside its plain version, its bound and
+   (candidate scoring) a PyTorch yardstick; candidate scoring's times in
+   the kernels line are taken with the L2 flushed before each call.
 
-The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
-the script exits non-zero before printing any result.
+The second-to-last line is the card's name and power limit; the last is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits non-zero before printing any result.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -37,18 +62,29 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "src/repro_torch/csrc/fused_descent.cu"
 KERNEL_REPLACES = "src/repro/kernels/fused_descent/kernel.py:96"
+SCORE_SOURCE = "src/repro_torch/csrc/candidate_score.cu"
+SCORE_REPLACES = "src/repro/kernels/candidate_score/kernel.py:34"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 RECORD_BYTES = 16
 N_BATCHES = 256
 BATCH = 4096
 ZIPF_A = 1.1
+DRAWS = 230_000_000              # ~200 M unique keys: the SOSD scale
+TUNE_DRAWS = 21_000_000          # ~20 M unique keys: the tuning phase
+TUNE_TIERS = ("azure_ssd", "azure_nfs", "azure_hdd")
+P99 = {"p": 0.99, "weight": 1.0}
+TUNE_BATCHES = 64
+SCORE_RTOL_PLAIN = 1e-5          # kernel vs plain float32 (sum order)
+SCORE_RTOL_REF = 3e-5            # kernel vs float64 oracle (the JAX
+                                 # package's tolerance for its scorers)
 
 
 def log(msg: str) -> None:
@@ -273,61 +309,166 @@ def time_launches(fn, n: int, reps: int) -> float:
     return float(np.median(per))
 
 
-def device_ms_per_call(fn, n: int) -> float:
-    """Device time of every kernel ``fn`` launches, per call, from the
-    profiler's CUPTI trace over ``n`` calls → milliseconds."""
+def trace_device_us(fn, n: int, before=None) -> dict:
+    """Device time of ``n`` calls of ``fn`` (each after ``before()``, when
+    given) from the profiler's CUPTI trace → microseconds per device row
+    (kernel or copy) name, summed over the calls.  An operator's row
+    repeats the time of the kernels it launched, so only device rows
+    count."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(10):
+        if before is not None:
+            before()
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def device_ms_per_call(fn, n: int) -> float:
+    """Device time of every kernel ``fn`` launches, per call, over ``n``
+    back-to-back calls → milliseconds."""
+    us = sum(trace_device_us(fn, n).values())
     assert us > 0, "the profiler saw no device time"
     return us / n / 1e3
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--draws", type=int, default=230_000_000,
-                    help="mixture draws before dedupe (cut only to fit a "
-                         "time limit; no less than 110M keeps >= 100M keys)")
-    args = ap.parse_args(argv)
+def build_all() -> None:
+    """Build both kernel libraries, one nvcc per source, started together;
+    print each build's time and ptxas resource lines.  Raises if either
+    build fails."""
+    from repro_torch.kernels.candidate_score import kernel as CK
+    from repro_torch.kernels.fused_descent import kernel as FK
+    libs = (FK.LIB, CK.LIB)
 
+    def timed_build(lib):
+        t0 = time.perf_counter()
+        path = lib.build()
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futs = [pool.submit(timed_build, lib) for lib in libs]
+        built = [f.result() for f in futs]      # re-raises a failed build
+    for lib, (path, secs) in zip(libs, built):
+        log(f"build {lib.name}: {secs:.3f} s -> {os.path.relpath(path, HERE)}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: candidate scoring against its plain version
+# ---------------------------------------------------------------------------
+def score_profiles() -> dict:
+    """The affine tiers phase 4 takes (ℓ, 1/B) from."""
+    from repro_torch.core import (PROFILES, CachedProfile, ObjectiveProfile)
+    ssd = PROFILES["azure_ssd"]
+    return {"azure_ssd": ssd, "azure_nfs": PROFILES["azure_nfs"],
+            "cached(azure_ssd, 0.5)": CachedProfile(backing=ssd,
+                                                    hit_rate=0.5),
+            "objective(azure_ssd, p0.99 w1)": ObjectiveProfile(
+                base=ssd, p=P99["p"], weight=P99["weight"])}
+
+
+def check_score_case(W: np.ndarray, wt: np.ndarray, ell: float,
+                     inv_bw: float, device, what: str) -> float:
+    """The kernel on (W, wt) against the plain version (rtol 1e-5) and the
+    float64 oracle (rtol 3e-5) → the largest relative error to plain."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.join(HERE, "src"))
+
+    from repro_torch.kernels.candidate_score import (affine_scores,
+                                                     affine_scores_ref,
+                                                     affine_scores_torch)
+    Wt = torch.from_numpy(np.ascontiguousarray(W, dtype=np.float32)) \
+        .to(device)
+    wtt = torch.from_numpy(np.ascontiguousarray(wt, dtype=np.float32)) \
+        .to(device)
+    got = affine_scores(Wt, wtt, ell, inv_bw)
+    plain = affine_scores_torch(Wt, wtt, ell, inv_bw)
+    torch.cuda.synchronize()
+    got = got.cpu().numpy().astype(np.float64)
+    plain = plain.cpu().numpy().astype(np.float64)
+    rel = float(np.max(np.abs(got - plain) / np.abs(plain)))
+    oracle = affine_scores_ref(W, wt, ell, inv_bw)
+    rel_ref = float(np.max(np.abs(got - oracle) / np.abs(oracle)))
+    if not (rel <= SCORE_RTOL_PLAIN and rel_ref <= SCORE_RTOL_REF
+            and np.all(np.isfinite(got))):
+        raise AssertionError(
+            f"candidate_score {what}: rel err {rel:.3e} to plain (limit "
+            f"{SCORE_RTOL_PLAIN}), {rel_ref:.3e} to the float64 oracle "
+            f"(limit {SCORE_RTOL_REF})")
+    return rel
+
+
+def check_scores(device, seed: int) -> float:
+    from repro_torch.core import affine_coefficients
+    rng = np.random.default_rng(seed + 2)
+    coeffs = {n: affine_coefficients(p) for n, p in score_profiles().items()}
+    n_cases, max_rel = 0, 0.0
+    for C in (1, 7, 8, 39, 300):
+        for S in (1, 127, 128, 4097, 65536, 65574, 131072):
+            W = rng.uniform(16.0, 1e6, size=(C, S))
+            wt = rng.uniform(0.5, 4.0, size=S)
+            for name, (ell, inv_bw) in coeffs.items():
+                max_rel = max(max_rel, check_score_case(
+                    W, wt, ell, inv_bw, device, f"C={C} S={S} {name}"))
+                n_cases += 1
+    log(f"candidate_score check: {n_cases} cases, max rel err to plain "
+        f"{max_rel:.3e} (limit {SCORE_RTOL_PLAIN}), all within "
+        f"{SCORE_RTOL_REF} of the float64 oracle")
+    return max_rel
+
+
+def kernel_numbers(kern, plain, n: int) -> dict:
+    """Device time per call from the CUPTI trace and wrapper time back to
+    back, for the kernel and its plain version, in milliseconds."""
+    return {"ms": device_ms_per_call(kern, n),
+            "plain_ms": device_ms_per_call(plain, n),
+            "call_ms": time_launches(kern, n, 15),
+            "plain_call_ms": time_launches(plain, n, 15)}
+
+
+def cold_device_ms(fn, n: int) -> float:
+    """Device time per call of the kernels ``fn`` launches when each call
+    finds the 50 MB L2 cold: a 128 MiB buffer is rewritten before each
+    call → milliseconds.  ``fn``'s own device rows are named from a trace
+    of back-to-back calls, and only those rows of the cold trace count,
+    so the rewrite's kernels are left out."""
+    import torch
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    own = set(trace_device_us(fn, n))
+    rows = trace_device_us(fn, n, before=lambda: flush.fill_(1.0))
+    assert own and own <= set(rows), (sorted(own), sorted(rows))
+    assert set(rows) - own, "the profiler saw no device time of the rewrite"
+    return sum(rows[k] for k in own) / n / 1e3
+
+
+def roofline_bound(nbytes: int, ops: int) -> tuple:
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations")
+
+
+def serve_phase(args, device, card, max_err: float) -> dict:
+    """Phase 5 and the fused descent's numbers → its kernels-line entry."""
+    import torch
+
     from repro_torch.api import ServeSpec
     from repro_torch.core import SerializedIndex, write_index
-    from repro_torch.kernels.fused_descent import kernel as K
     from repro_torch.kernels.fused_descent import fused_descent_torch
+    from repro_torch.kernels.fused_descent import kernel as K
 
-    device = torch.device("cuda")
-    card = card_info()
-    log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
-
-    # -- 2. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = K.build()
-    log(f"build: {time.perf_counter() - t0:.3f} s -> "
-        f"{os.path.relpath(lib, HERE)}")
-    for line in K.build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-
-    # -- 3. kernel against its plain version ---------------------------------
-    max_err = check_kernel(device, args.seed)
-
-    # -- 4. the main path ----------------------------------------------------
-    if args.draws < 230_000_000:
-        log(f"reduced: {args.draws} mixture draws instead of 230000000")
+    if args.draws < DRAWS:
+        log(f"reduced: {args.draws} mixture draws instead of {DRAWS}")
     t0 = time.perf_counter()
     keys = make_keys(args.draws, args.seed)
     t_gen = time.perf_counter() - t0
@@ -346,11 +487,12 @@ def main(argv=None) -> int:
         log(f"index: layer entries {sizes} (bottom-up), built in "
             f"{t_build:.1f} s; file {os.path.getsize(path)} B, bottom layer "
             f"{meta.layers[0].size} B")
+        del design
 
         spec = ServeSpec(resident_layers=2, cache_bytes=(1 << 20, 8 << 20),
                          pipeline_depth=2)
         streams = make_streams(len(keys), args.seed, N_BATCHES, BATCH)
-        K.reset_launches()                    # the main path starts here
+        K.reset_launches()                    # the serving path starts here
         served, reports, fused = {}, {}, {}
         for name, idx in streams.items():
             served[name], reports[name], fused[name] = serve_stream(
@@ -380,11 +522,11 @@ def main(argv=None) -> int:
             sidx.close()
         if not np.array_equal(served["uniform"][:2000], want):
             raise AssertionError("served ranges != SerializedIndex.lookup")
-        log(f"main path: {batches} batches, {launches} kernel launches; "
-            f"ranges contain every record, equal the numpy backend's, and "
-            f"a 2000-key sample equals SerializedIndex.lookup")
+        log(f"serving path: {batches} batches, {launches} fused_descent "
+            f"launches; ranges contain every record, equal the numpy "
+            f"backend's, and a 2000-key sample equals SerializedIndex.lookup")
 
-        # -- 5. the kernel at the serving shape ------------------------------
+        # -- the kernel at the serving shape ---------------------------------
         # the module that served the uniform stream, on every one of its
         # batches (the last is timed below)
         mod = fused["uniform"]
@@ -400,48 +542,271 @@ def main(argv=None) -> int:
             max_err = max(max_err, float(serve_err))
             assert serve_err == 0, \
                 f"serving batch {b}: kernel != plain ({serve_err})"
-
-        def kern():
-            return mod(qt)
-
-        def plain():
-            return fused_descent_torch(mod.planes(), qt)
-
-        ms, plain_ms = device_ms_per_call(kern, 200), \
-            device_ms_per_call(plain, 200)
-        call_ms, plain_call_ms = time_launches(kern, 200, 15), \
-            time_launches(plain, 200, 15)
-        Q = BATCH
-        n_band = int(kinds.sum())
-        n_step = L - n_band
-        # each input read once, each output written once: a step row needs
-        # keys, pos_lo, pos_hi; a band row keys, x1, y1, m, delta
-        nbytes = (4 * Q + 4 * L + 4 * L * P + 8 * P * n_step
-                  + 16 * P * n_band + 8 * L * Q)
-        # the search's compares (ceil(log2(P+1)) per query and layer) and a
-        # band row's five f32 ops, floor and ceil; the guide's table has no
-        # int32 rate, so the compares are priced at the f32 peak, which can
-        # only make the operations time smaller
-        ops = Q * (L * math.ceil(math.log2(P + 1)) + 7 * n_band)
-        bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-        bound_ms = max(bytes_s, ops_s) * 1e3
-        bound_by = "bytes" if bytes_s >= ops_s else "operations"
-        log(f"kernel at serving shape (Q={Q}, L={L}, P={P}) on {card}: "
-            f"device {ms * 1e3:.3f} us/launch (plain torch {plain_ms * 1e3:.3f}"
-            f" us of device time per call); wrapper call back to back "
-            f"{call_ms * 1e3:.3f} us (plain torch {plain_call_ms * 1e3:.3f} us)"
-            f"; bound {bound_ms * 1e3:.4f} us by {bound_by} ({nbytes} B, "
-            f"{ops} ops; {n_step} step + {n_band} band layers); {launches} "
-            f"launches on the main path")
-        print(json.dumps({"kernels": [{
-            "name": "fused_descent", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-            "launches": launches, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}]}))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+    t = kernel_numbers(lambda: mod(qt),
+                       lambda: fused_descent_torch(mod.planes(), qt), 200)
+    Q = BATCH
+    n_band = int(kinds.sum())
+    n_step = L - n_band
+    # each input read once, each output written once: a step row needs
+    # keys, pos_lo, pos_hi; a band row keys, x1, y1, m, delta
+    nbytes = (4 * Q + 4 * L + 4 * L * P + 8 * P * n_step
+              + 16 * P * n_band + 8 * L * Q)
+    # the search's compares (ceil(log2(P+1)) per query and layer) and a
+    # band row's five f32 ops, floor and ceil; the guide's table has no
+    # int32 rate, so the compares are priced at the f32 peak, which can
+    # only make the operations time smaller
+    ops = Q * (L * math.ceil(math.log2(P + 1)) + 7 * n_band)
+    bound_ms, bound_by = roofline_bound(nbytes, ops)
+    log(f"fused_descent at serving shape (Q={Q}, L={L}, P={P}) on {card}: "
+        f"device {t['ms'] * 1e3:.3f} us/launch (plain torch "
+        f"{t['plain_ms'] * 1e3:.3f} us of device time per call); wrapper "
+        f"call back to back {t['call_ms'] * 1e3:.3f} us (plain torch "
+        f"{t['plain_call_ms'] * 1e3:.3f} us); bound {bound_ms * 1e3:.4f} us "
+        f"by {bound_by} ({nbytes} B, {ops} ops; {n_step} step + {n_band} "
+        f"band layers); {launches} launches on the serving path")
+    return {"name": "fused_descent", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+            "launches": launches, "max_abs_err": max_err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def resident_that_packs(design) -> int:
+    """How many top layers one kernel plane can hold: counted from the root
+    down while a layer has at most MAX_VMEM_ENTRIES entries."""
+    from repro_torch.kernels.fused_descent import MAX_VMEM_ENTRIES
+    n = 0
+    for lay in reversed(design.layers):
+        entries = lay.n_nodes if lay.kind == "band" else lay.n_pieces
+        if entries > MAX_VMEM_ENTRIES:
+            break
+        n += 1
+    return n
+
+
+def check_tuned_ranges(design, n_res: int, served: np.ndarray,
+                       ref: np.ndarray) -> str:
+    """Served ranges against the numpy backend's.  They must be equal,
+    unless the bottom layer is a band layer held on the card: then the
+    data range IS its f32 window, which the engine widens by the δ slack
+    (the bound the JAX package states for its device descent), so each
+    range must contain the float64 one and be at most that slack wider
+    on either side."""
+    from repro_torch.kernels.fused_descent import band_f32_slack
+    if np.array_equal(served, ref):
+        return "ranges equal the numpy backend's"
+    bottom = design.layers[0]
+    if n_res < design.n_layers or bottom.kind != "band":
+        raise AssertionError("tuned design: cuda ranges != numpy ranges")
+    # the f32 mid may sit a slack off the float64 one, and the window is
+    # widened by another slack; floor/ceil add one byte each
+    limit = 2.0 * float(np.max(band_f32_slack(bottom.y1, bottom.m,
+                                              bottom.x1))) + 2.0
+    widen = np.concatenate([ref[:, 0] - served[:, 0], served[:, 1] - ref[:, 1]])
+    if widen.min() < 0 or widen.max() > limit:
+        raise AssertionError(
+            f"tuned design: resident band windows do not contain the numpy "
+            f"ranges within the f32 slack: widening in [{widen.min()}, "
+            f"{widen.max()}] B, limit {limit:.1f} B")
+    n_diff = int(np.count_nonzero(np.any(served != ref, axis=1)))
+    return (f"the bottom layer is a band layer held on the card, so ranges "
+            f"are its f32 windows: {n_diff} of {len(ref)} differ from the "
+            f"numpy backend's, each containing it and at most {widen.max()} "
+            f"B wider per side (f32 slack limit {limit:.1f} B)")
+
+
+def tune_phase(args, device, card, max_rel: float) -> dict:
+    """Phase 6 and the candidate-scoring numbers → its kernels-line entry."""
+    import torch
+
+    from repro_torch.api import ServeSpec
+    from repro_torch.core import (PROFILES, KeyPositions, LayerCache,
+                                  affine_coefficients, airtune, beam_search,
+                                  expected_latency, objective_profile,
+                                  write_index)
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.kernels.candidate_score import (affine_scores,
+                                                     affine_scores_torch)
+    from repro_torch.kernels.candidate_score import kernel as CK
+    from repro_torch.kernels.fused_descent import kernel as FK
+
+    if args.tune_draws < DRAWS:
+        log(f"reduced: tuning on {args.tune_draws} mixture draws instead of "
+            f"{DRAWS} (a cold tune builds on the host at ~5 s per million "
+            f"keys; the run's time limit forces the cut)")
+    t0 = time.perf_counter()
+    keys = make_keys(args.tune_draws, args.seed + 3)
+    D = KeyPositions.fixed_record(keys, RECORD_BYTES)
+    log(f"tuning keys: {D.n} unique ({args.tune_draws} draws) in "
+        f"{time.perf_counter() - t0:.1f} s; data extent {D.size_bytes} B")
+    tunes = [(name, fn, tier, None) for tier in TUNE_TIERS
+             for name, fn in (("airtune", airtune), ("beam", beam_search))]
+    tunes.append(("airtune", airtune, "azure_ssd", P99))
+
+    # keep the largest device-ranked (U, S) call's inputs for the numbers
+    largest = {"size": 0}
+    batched_est = sweep_mod.SweepEngine._batched_est
+
+    def recording_est(engine, W, weights):
+        if engine.score_backend == "cuda" and W.size > largest["size"]:
+            largest.update(size=W.size, W=W, weights=weights,
+                           profile=engine.profile)
+        return batched_est(engine, W, weights)
+
+    cache = LayerCache()
+    results = {}
+    est_batches = 0
+    sweep_mod.SweepEngine._batched_est = recording_est
+    try:
+        CK.reset_launches()                   # the tuning path starts here
+        FK.reset_launches()
+        for name, fn, tier, objective in tunes:
+            key = f"{name}/{tier}" + ("/p99" if objective else "")
+            pair = {}
+            for backend in ("cuda", "numpy"):
+                t0 = time.perf_counter()
+                res = fn(D, PROFILES[tier], k=5, layer_cache=cache,
+                         objective=objective, score_backend=backend)
+                wall = time.perf_counter() - t0
+                st = res.stats
+                pair[backend] = res
+                log(f"tune {key} [{backend}]: wall {wall:.3f} s, sweep "
+                    f"{st.sweep_seconds:.3f} s, cost {res.cost!r}, "
+                    f"{list(res.builder_names)}; stats "
+                    + json.dumps(dataclasses.asdict(st)))
+            cu, nu = pair["cuda"], pair["numpy"]
+            est_batches += cu.stats.est_batches
+            if not abs(cu.cost - nu.cost) <= 1e-6 * abs(nu.cost):
+                raise AssertionError(f"{key}: cuda cost {cu.cost!r} != numpy "
+                                     f"cost {nu.cost!r} (rel 1e-6)")
+            log(f"tune {key}: cuda and numpy costs agree (rel "
+                f"{abs(cu.cost - nu.cost) / nu.cost:.3e}); designs "
+                f"{'equal' if cu.builder_names == nu.builder_names else 'DIFFER'}")
+            results[key] = cu
+        best = results["airtune/azure_ssd"]
+        exact = expected_latency(best.design, PROFILES["azure_ssd"])
+        assert abs(exact - best.cost) <= 1e-9 * best.cost, (exact, best.cost)
+        p99 = results["airtune/azure_ssd/p99"]
+        exact = expected_latency(p99.design, objective_profile(
+            PROFILES["azure_ssd"], P99))
+        assert abs(exact - p99.cost) <= 1e-9 * p99.cost, (exact, p99.cost)
+
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+        try:
+            path = os.path.join(workdir, "tuned.air")
+            write_index(path, best.design, data_record=RECORD_BYTES,
+                        page_bytes=4096)
+            n_res = resident_that_packs(best.design)
+            spec = ServeSpec(resident_layers=n_res)
+            idx = make_streams(D.n, args.seed + 3, TUNE_BATCHES,
+                               BATCH)["uniform"]
+            served, report, _ = serve_stream(path, keys, idx, spec, None,
+                                             TUNE_BATCHES)
+            cs_launches = CK.launches()       # ... and ends here
+            fd_launches = FK.launches()
+            check_ranges(served, idx, "tuned design")
+            ref_ranges, _, _ = serve_stream(
+                path, keys, idx, spec.replace(backend="numpy"), None,
+                TUNE_BATCHES)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    finally:
+        sweep_mod.SweepEngine._batched_est = batched_est
+    ranges_note = check_tuned_ranges(best.design, n_res, served, ref_ranges)
+    assert report["device_batches"] == report["batches"] == TUNE_BATCHES, \
+        report
+    assert cs_launches >= est_batches >= 1, (cs_launches, est_batches)
+    assert fd_launches >= TUNE_BATCHES, fd_launches
+    log(f"tuned design {best.design.describe()}: {n_res} of "
+        f"{best.design.n_layers} layers resident; " + json.dumps(report))
+    log(f"tuning path: {len(tunes)} cuda tunes made {est_batches} device "
+        f"rankings with {cs_launches} candidate_score launches; the tuned "
+        f"design served {TUNE_BATCHES} batches with {fd_launches} "
+        f"fused_descent launches; ranges contain every record; {ranges_note}")
+
+    # -- the kernel at the largest shape the tunes launched ------------------
+    W, wt, prof = largest["W"], largest["weights"], largest["profile"]
+    ell, inv_bw = affine_coefficients(prof)
+    U, S = W.shape
+    max_rel = max(max_rel, check_score_case(W, wt, ell, inv_bw, device,
+                                            f"tuning shape U={U} S={S}"))
+    Wt = torch.from_numpy(np.ascontiguousarray(W, dtype=np.float32)).to(device)
+    wtt = torch.from_numpy(np.ascontiguousarray(wt, dtype=np.float32)) \
+        .to(device)
+    den = wtt.sum()
+    base = torch.full((U,), ell, dtype=torch.float32, device=device) * den
+
+    def kern():
+        return affine_scores(Wt, wtt, ell, inv_bw)
+
+    def plain():
+        return affine_scores_torch(Wt, wtt, ell, inv_bw)
+
+    def library():
+        # the yardstick: one BLAS call (ℓ·Σw + inv_bw·W·w) and one division
+        # compute the same function; timed here, never used by the port
+        return torch.addmv(base, Wt, wtt, alpha=inv_bw).div_(den)
+
+    t = kernel_numbers(kern, plain, 200)
+    warm_library_ms = device_ms_per_call(library, 200)
+    # the tuner copies W to the card just before each launch, but 10.5 MB
+    # of widths sit in the 50 MB L2 only while nothing else ran since; the
+    # kernels line holds the L2-cold times against the device-memory bound
+    cold = {name: cold_device_ms(fn, 50) for name, fn in
+            (("ms", kern), ("plain_ms", plain), ("library_ms", library))}
+    nbytes = 4 * U * S + 4 * S + 4 * U
+    bound_ms, bound_by = roofline_bound(nbytes, 3 * U * S)
+    log(f"candidate_score at the largest tuning shape (U={U}, S={S}, "
+        f"{prof.name}) on {card}: device time per call with the L2 flushed "
+        f"{cold['ms'] * 1e3:.3f} us (plain torch {cold['plain_ms'] * 1e3:.3f}"
+        f" us; torch.addmv + div {cold['library_ms'] * 1e3:.3f} us, two "
+        f"calls), back to back (L2-warm) {t['ms'] * 1e3:.3f} us (plain torch "
+        f"{t['plain_ms'] * 1e3:.3f} us; torch.addmv + div "
+        f"{warm_library_ms * 1e3:.3f} us); wrapper call back to back "
+        f"{t['call_ms'] * 1e3:.3f} us (plain torch "
+        f"{t['plain_call_ms'] * 1e3:.3f} us); bound {bound_ms * 1e3:.4f} us "
+        f"by {bound_by} ({nbytes} B, {3 * U * S} ops); {cs_launches} "
+        f"launches on the tuning path")
+    return {"name": "candidate_score", "route": "cuda",
+            "source": SCORE_SOURCE, "replaces": SCORE_REPLACES,
+            "launches": cs_launches, "max_abs_err": max_rel,
+            "ms": cold["ms"], "plain_ms": cold["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cold["library_ms"]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--draws", type=int, default=DRAWS,
+                    help="mixture draws before dedupe for the serving phase "
+                         "(cut only to fit a time limit; no less than 110M "
+                         "keeps >= 100M keys)")
+    ap.add_argument("--tune-draws", type=int, default=TUNE_DRAWS,
+                    help="mixture draws before dedupe for the tuning phase")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(HERE, "src"))
+
+    device = torch.device("cuda")
+    card = card_info()
+    log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    t_start = time.perf_counter()
+    build_all()                                           # phase 2
+    fd_err = check_kernel(device, args.seed)              # phase 3
+    cs_err = check_scores(device, args.seed)              # phase 4
+    fused = serve_phase(args, device, card, fd_err)       # phase 5
+    scores = tune_phase(args, device, card, cs_err)       # phase 6
     torch.cuda.synchronize()
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [fused, scores]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Layer builders ``F(D) → Θ`` (paper §5.2, §A.1), as plain functions.
+"""Layer builders ``F(D) → Θ`` (paper §5.2, §A.1) and the Eq. (8) grid.
 
   * ``GStep(p, λ)``  — greedy step packing: start a new constant piece when
     ``y⁺_i − b_k > λ``; pack ``p`` pieces per node.
@@ -16,10 +16,14 @@ bit-identical to the JAX package's ``repro.core.builders``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from .keyset import KeyPositions, POS_DTYPE
-from .nodes import BandLayer, StepLayer
+from .nodes import BandLayer, Layer, StepLayer
+from .registry import (BUILDER_FAMILIES, register_builder,
+                       register_multi_lam_builder)
 
 _DELTA_SAFETY = 1.0  # absorbs float64 rounding so Eq.(1) holds bit-exactly
 
@@ -192,3 +196,164 @@ def build_gband(D: KeyPositions, lam: float) -> BandLayer:
     band width ``2δ`` stays ≤ λ."""
     check_disjoint(D)
     return fit_bands_for_groups(D, _gband_starts(D, lam))
+
+
+# ---------------------------------------------------------------------------
+# builder objects + the Eq.(8) grid
+# ---------------------------------------------------------------------------
+# The built-in families, registered so the Alg. 2 search resolves them (and
+# any third-party family registered through the registry) by one mechanism.
+@register_builder("gstep")
+def _gstep_family(D: KeyPositions, lam: float, p: int) -> Layer:
+    return build_gstep(D, int(p), lam)
+
+
+@register_builder("gband")
+def _gband_family(D: KeyPositions, lam: float, p: int) -> Layer:
+    return build_gband(D, lam)
+
+
+@register_builder("eband")
+def _eband_family(D: KeyPositions, lam: float, p: int) -> Layer:
+    return build_eband(D, lam)
+
+
+# ---------------------------------------------------------------------------
+# fused multi-λ entry points (the sweep engine's fast path, §Eq. 8)
+# ---------------------------------------------------------------------------
+# One call builds a family's whole λ-column for a vertex.  Shared work:
+# the float64 views (lo_f/hi_f/keys_f/mid_f) convert once per collection
+# (cached on D), and λ values resolving to the SAME partition — common on
+# small outline collections where the grid saturates — share one layer
+# object, so band fitting / step construction run once per unique
+# boundary set.  NOTE greedy boundaries are *not* nested across λ (a
+# coarse boundary need not survive at a finer λ), so every λ's boundaries
+# are still computed exactly; only construction downstream of identical
+# boundaries is deduplicated.  Each element is bit-identical to the
+# single-λ build at that λ.
+def _dedup_by_starts(D: KeyPositions, lams, starts_fn, construct):
+    layers, by_starts = [], {}
+    for lam in lams:
+        starts = starts_fn(D, lam)
+        key = starts.tobytes()
+        layer = by_starts.get(key)
+        if layer is None:
+            layer = construct(starts)
+            by_starts[key] = layer
+        layers.append(layer)
+    return layers
+
+
+@register_multi_lam_builder("gstep")
+def build_gstep_multi(D: KeyPositions, lams, p: int) -> list:
+    check_disjoint(D)
+    lo_f, hi_f = D.lo_f, D.hi_f       # one float64 conversion for all λ
+    return _dedup_by_starts(
+        D, lams, lambda d, lam: greedy_partition(lo_f, hi_f, lam),
+        lambda starts: gstep_from_starts(D, starts, int(p)))
+
+
+@register_multi_lam_builder("gband")
+def build_gband_multi(D: KeyPositions, lams, p: int) -> list:
+    check_disjoint(D)
+    return _dedup_by_starts(D, lams, _gband_starts,
+                            lambda starts: fit_bands_for_groups(D, starts))
+
+
+@register_multi_lam_builder("eband")
+def build_eband_multi(D: KeyPositions, lams, p: int) -> list:
+    check_disjoint(D)
+    return _dedup_by_starts(D, lams, _eband_starts,
+                            lambda starts: fit_bands_for_groups(D, starts))
+
+
+DEFAULT_FAMILIES = ("gstep", "gband", "eband")   # the paper's deployed set
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerBuilder:
+    """A node builder F ∈ 𝓕 mapping a key-position collection to a layer.
+
+    ``kind`` names a family in :data:`repro_torch.core.registry.BUILDER_FAMILIES`;
+    resolution happens per call, so families registered after construction
+    (e.g. from test or plugin code) are picked up live.
+    """
+
+    kind: str          # a registered family name ('gstep' | 'gband' | …)
+    lam: float
+    p: int = 16        # pieces per node (gstep only)
+
+    @property
+    def name(self) -> str:
+        if self.kind == "gstep":
+            return f"GStep({self.p},{int(self.lam)})"
+        if self.kind in ("gband", "eband"):
+            return f"{'GBand' if self.kind == 'gband' else 'EBand'}({int(self.lam)})"
+        return f"{self.kind}({int(self.lam)})"
+
+    def __call__(self, D: KeyPositions) -> Layer:
+        return BUILDER_FAMILIES.get(self.kind)(D, self.lam, self.p)
+
+
+def make_builders(lam_low: float = 2**8, lam_high: float = 2**20,
+                  base: float = 2.0, p: int = 16,
+                  kinds=DEFAULT_FAMILIES) -> list[LayerBuilder]:
+    """Granularity exponentiation (Eq. 8): λ_low, λ_low·(1+ε), …, λ_high.
+
+    ``kinds`` are family names resolved through the builder registry;
+    unknown names raise ``KeyError`` listing what is registered.
+    """
+    if not base > 1.0:       # a real raise: base <= 1 never terminates
+        raise ValueError(f"grid base must be > 1, got {base}")
+    if kinds is None:
+        kinds = DEFAULT_FAMILIES
+    for k in kinds:
+        BUILDER_FAMILIES.get(k)        # fail fast on unknown families
+    lams = []
+    lam = float(lam_low)
+    while lam <= lam_high * (1 + 1e-9):
+        lams.append(lam)
+        lam *= base
+    return [LayerBuilder(kind=k, lam=l, p=p) for k in kinds for l in lams]
+
+
+# ---------------------------------------------------------------------------
+# data-partitioned building (paper §5.4 "From Data Partitioning")
+# ---------------------------------------------------------------------------
+def merge_layers(parts: list[Layer]) -> Layer:
+    """Merge per-partition layers into one (piecewise functions concatenate)."""
+    assert parts
+    if isinstance(parts[0], StepLayer):
+        piece_keys = np.concatenate([q.piece_keys for q in parts])
+        piece_pos = np.concatenate(
+            [q.piece_pos[:-1] for q in parts] + [parts[-1].piece_pos[-1:]])
+        offs = [parts[0].node_piece_off]
+        acc = parts[0].n_pieces
+        for q in parts[1:]:
+            offs.append(q.node_piece_off[1:] + acc)
+            acc += q.n_pieces
+        return StepLayer(piece_keys=piece_keys, piece_pos=piece_pos,
+                         node_piece_off=np.concatenate(offs))
+    return BandLayer(
+        node_keys=np.concatenate([q.node_keys for q in parts]),
+        x1=np.concatenate([q.x1 for q in parts]),
+        y1=np.concatenate([q.y1 for q in parts]),
+        m=np.concatenate([q.m for q in parts]),
+        delta=np.concatenate([q.delta for q in parts]),
+        clamp_lo=min(q.clamp_lo for q in parts),
+        clamp_hi=max(q.clamp_hi for q in parts),
+    )
+
+
+def build_partitioned(builder: LayerBuilder, D: KeyPositions,
+                      partition_pairs: int = 1_000_000) -> Layer:
+    """Build per 1M-pair partition and merge (paper's default partitioning).
+
+    Partitions build sequentially, on the host.
+    """
+    if D.n <= partition_pairs:
+        return builder(D)
+    parts = []
+    for s in range(0, D.n, partition_pairs):
+        parts.append(builder(D.slice(s, min(s + partition_pairs, D.n))))
+    return merge_layers(parts)

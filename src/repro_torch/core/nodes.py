@@ -115,7 +115,10 @@ class BandLayer:
         return (hi - lo).astype(np.float64)
 
 
-def outline(layer: StepLayer | BandLayer, D: KeyPositions, base: int = 0) -> KeyPositions:
+Layer = StepLayer | BandLayer
+
+
+def outline(layer: Layer, D: KeyPositions, base: int = 0) -> KeyPositions:
     """Turn a built layer into the key-position collection seen by the next
     layer up (Alg. 2 line 5): keys = node boundary keys z_j, positions =
     byte ranges of serialized node records, weights = covered query mass.
@@ -140,7 +143,7 @@ def outline(layer: StepLayer | BandLayer, D: KeyPositions, base: int = 0) -> Key
                         weights=w)
 
 
-def mean_width(layer: StepLayer | BandLayer, D: KeyPositions) -> float:
+def mean_width(layer: Layer, D: KeyPositions) -> float:
     """E_{x∼X}[Δ(x; Θ_l)] with X uniform over original keys (weights)."""
     wq = layer.widths_at(D.keys)
     return float(np.average(wq, weights=D.weights))

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .._cuda import resolve_device
 from . import kernel, ref
 
 MAX_VMEM_ENTRIES = kernel.MAX_P  # plane width cap, equal to the JAX package's
@@ -25,17 +26,6 @@ KEY_PAD = np.iinfo(np.int32).max
 # every real key AND every query, hence the -1
 _I32_LIM = 2**31 - 1
 PLANES = ("kinds", "keys", "pos_lo", "pos_hi", "x1", "y1", "m", "delta")
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller names
-    another.  With no card and no device named, this raises."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return torch.device("cuda")
 
 
 def band_f32_slack(y1, m, x1) -> np.ndarray:

@@ -232,8 +232,8 @@ def test_plane_geometry_is_decided_once_and_equals_the_reference():
         ref_fd.ops.MAX_VMEM_ENTRIES, ref_fd.ops.LANE)
     assert (K.MAX_P, K.LANE) == (fd.ops.MAX_VMEM_ENTRIES, fd.ops.LANE)
     # nvcc sizes the kernel's shared-memory plane from this flag alone
-    assert f"-DMAX_P={fd.ops.MAX_VMEM_ENTRIES}" in K.NVCC_FLAGS
-    assert "#define MAX_P" not in K.SOURCE.read_text()
+    assert f"-DMAX_P={fd.ops.MAX_VMEM_ENTRIES}" in K.LIB.flags
+    assert "#define MAX_P" not in K.LIB.source.read_text()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

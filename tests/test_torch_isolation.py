@@ -1,8 +1,8 @@
 """The port stands alone: no import of ``jax`` or ``repro`` anywhere in
-``src/repro_torch`` or ``chip_smoke.py``; every module imports with jax
-blocked; entry points run on the card unless the caller names the CPU,
-and the kernel path has no fallback (a CPU tensor never reaches the
-kernel, a failed build raises, a missing card raises)."""
+``src/repro_torch`` or ``chip_smoke.py``; every module imports on its own,
+first, with jax blocked; entry points run on the card unless the caller
+names the CPU, and the kernel paths have no fallback (a CPU tensor never
+reaches a kernel, a failed build raises, a missing card raises)."""
 import ast
 import os
 import pkgutil
@@ -15,8 +15,13 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import KeyPositions, write_index
+from repro_torch.core import (PROFILES, KeyPositions, TuneStats, airtune,
+                              beam_search, brute_force, make_builders,
+                              write_index)
+from repro_torch.core.sweep import SweepEngine
+from repro_torch.kernels import _cuda
 from repro_torch.kernels import fused_descent as fd
+from repro_torch.kernels.candidate_score import kernel as CK
 from repro_torch.kernels.fused_descent import kernel as K
 from repro_torch.serve import IndexService, demo_serving_design
 
@@ -53,11 +58,20 @@ def test_every_port_module_imports_with_jax_blocked():
     names = ["repro_torch"] + [
         m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                               "repro_torch.")]
-    assert "repro_torch.serve.index_service" in names
+    for name in ("repro_torch.serve.index_service", "repro_torch.core.sweep",
+                 "repro_torch.core.airtune", "repro_torch.core.baselines",
+                 "repro_torch.kernels.candidate_score.kernel",
+                 "repro_torch.kernels._cuda", "repro_torch.api.spec"):
+        assert name in names
+    # each module is imported first, into a process that holds no other
+    # module of the port, so an import cycle cannot hide behind the order
     code = ("import sys, importlib\n"
             "for blocked in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[blocked] = None\n"
             f"for name in {names!r}:\n"
+            "    for mod in [m for m in sys.modules\n"
+            "                if m.split('.')[0] == 'repro_torch']:\n"
+            "        del sys.modules[mod]\n"
             "    importlib.import_module(name)\n"
             "print('imported', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -110,27 +124,60 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
     assert K.launches() == before
 
 
-def test_failed_build_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(K, "_lib", None)
-    monkeypatch.setattr(K, "BUILD_ROOT", tmp_path / "build")
-    monkeypatch.setattr(K, "_nvcc", lambda: shutil.which("false") or "false")
+def test_entry_points_of_the_tuner_need_a_card_unless_told_otherwise(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = np.arange(1, 5_001, dtype=np.uint64) * 7919
+    D = KeyPositions.fixed_record(keys, 16)
+    bs = make_builders(lam_low=2**10, lam_high=2**16, base=4.0)
+    prof = PROFILES["azure_ssd"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SweepEngine(bs, prof, TuneStats())
+    for strategy in (airtune, beam_search, brute_force):
+        # the legacy loop (sweep=False) never builds an engine: it checks
+        # the backend and the device all the same
+        for sweep in (True, False):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                strategy(D, prof, bs, sweep=sweep)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                strategy(D, prof, bs, sweep=sweep, score_backend="pallas")
+            with pytest.raises(ValueError, match="score_backend"):
+                strategy(D, prof, bs, sweep=sweep, score_backend="tpu",
+                         device="cpu")
+            cpu = strategy(D, prof, bs, sweep=sweep, device="cpu")
+            exact = strategy(D, prof, bs, sweep=sweep, score_backend="numpy")
+            assert cpu.cost == pytest.approx(exact.cost, rel=1e-6)
+
+
+@pytest.mark.parametrize("lib", [K.LIB, CK.LIB], ids=lambda lib: lib.name)
+def test_failed_build_raises(lib, tmp_path, monkeypatch):
+    monkeypatch.setattr(lib, "_lib", None)
+    monkeypatch.setattr(_cuda, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "nvcc", lambda: shutil.which("false") or "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        K.build()
+        lib.build()
+    assert lib._lib is None
     monkeypatch.undo()
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        K._nvcc()
+        _cuda.nvcc()
 
 
-def test_build_is_keyed_by_the_source(tmp_path, monkeypatch):
-    first = K.library_path()
-    assert first.parent.parent == K.BUILD_ROOT
-    assert K.BUILD_ROOT.parts[-2:] == ("build", "repro_torch")
-    src = tmp_path / "fused_descent.cu"
-    src.write_bytes(K.SOURCE.read_bytes() + b"\n// edited\n")
-    monkeypatch.setattr(K, "SOURCE", src)
-    assert K.library_path() != first
+@pytest.mark.parametrize("lib", [K.LIB, CK.LIB], ids=lambda lib: lib.name)
+def test_build_is_keyed_by_the_source(lib, tmp_path, monkeypatch):
+    first = lib.library_path()
+    assert first.parent.parent == _cuda.BUILD_ROOT
+    assert _cuda.BUILD_ROOT.parts[-2:] == ("build", "repro_torch")
+    assert lib.source == _cuda.CSRC / f"{lib.name}.cu" and lib.source.exists()
+    assert all(f in lib.flags for f in ("-gencode",
+                                        "arch=compute_90a,code=sm_90a"))
+    src = tmp_path / f"{lib.name}.cu"
+    src.write_bytes(lib.source.read_bytes() + b"\n// edited\n")
+    monkeypatch.setattr(lib, "source", src)
+    assert lib.library_path() != first
+    # the two kernels never share a library
+    assert K.LIB.library_path() != CK.LIB.library_path()
 
 
 def _run_chip_smoke(cwd):

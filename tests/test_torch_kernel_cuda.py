@@ -1,15 +1,20 @@
-"""The hand-written fused descent kernel on the card, against its plain
-PyTorch version on the same inputs (numpy seeds).  Tolerance: none — the
-kernel forbids FMA contraction, so it equals the plain version bit for
-bit.  Needs an NVIDIA card: run there with ``PYTHONPATH=src python -m
-pytest -m cuda tests/test_torch_kernel_cuda.py``; skips on a machine
-without one.  It imports only the port, so it runs where jax is not
-installed."""
+"""The hand-written kernels on the card, against their plain PyTorch
+versions on the same inputs (numpy seeds).  Fused descent: no tolerance —
+the kernel forbids FMA contraction, so it equals the plain version bit
+for bit.  Candidate scoring: rtol 1e-5 to the plain version (the float32
+sums are taken in another order) and 3e-5 to the float64 oracle (the JAX
+package's own tolerance for its device scorers).  Needs an NVIDIA card:
+run there with ``PYTHONPATH=src python -m pytest -m cuda
+tests/test_torch_kernel_cuda.py``; skips on a machine without one.  It
+imports only the port, so it runs where jax is not installed."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import PROFILES, CachedProfile, affine_coefficients
+from repro_torch.kernels import candidate_score as cs
 from repro_torch.kernels import fused_descent as fd
+from repro_torch.kernels.candidate_score import kernel as CK
 from repro_torch.kernels.fused_descent import kernel as K
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +87,40 @@ def test_kernel_rejects_what_it_does_not_take(card):
         K.fused_descent_cuda(torch.arange(4, dtype=torch.int32, device=card),
                              *planes_t[:1], planes_t[1].float(),
                              *planes_t[2:])
+
+
+@pytest.mark.parametrize("C", [1, 7, 39, 300])
+@pytest.mark.parametrize("S", [1, 127, 4097, 65574])
+def test_candidate_score_kernel_matches_plain_and_oracle(card, C, S):
+    rng = np.random.default_rng(C * 100_003 + S)
+    W = rng.uniform(16.0, 1e6, size=(C, S))
+    wt = rng.uniform(0.5, 4.0, size=S)
+    for prof in (PROFILES["azure_ssd"],
+                 CachedProfile(backing=PROFILES["azure_nfs"], hit_rate=0.5)):
+        ell, inv_bw = affine_coefficients(prof)
+        Wt = torch.from_numpy(W.astype(np.float32)).to(card)
+        wtt = torch.from_numpy(wt.astype(np.float32)).to(card)
+        before = CK.launches()
+        got = cs.affine_scores(Wt, wtt, ell, inv_bw)
+        torch.cuda.synchronize()
+        assert CK.launches() == before + 1
+        plain = cs.affine_scores_torch(Wt, wtt, ell, inv_bw)
+        np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(got.cpu().numpy().astype(np.float64),
+                                   cs.affine_scores_ref(W, wt, ell, inv_bw),
+                                   rtol=3e-5)
+
+
+def test_candidate_score_kernel_rejects_what_it_does_not_take(card):
+    W = torch.ones((3, 5), dtype=torch.float32, device=card)
+    wt = torch.ones(5, dtype=torch.float32, device=card)
+    before = CK.launches()
+    for bad in (W.double(), W.t(), W[:, :4]):
+        with pytest.raises(ValueError):
+            CK.affine_scores_cuda(bad, wt, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        CK.affine_scores_cuda(W, wt[:4], 1.0, 1.0)
+    with pytest.raises(ValueError):
+        CK.affine_scores_cuda(W, wt.cpu(), 1.0, 1.0)
+    assert CK.launches() == before

@@ -236,3 +236,67 @@ def test_keypositions_identical(data):
     offs = np.concatenate([[0], np.cumsum(np.arange(1, len(keys) + 1))])
     assert KeyPositions.from_offsets(keys, offs).fingerprint == \
         RefKP.from_offsets(keys, offs).fingerprint
+
+
+# ---------------------------------------------------------------------------
+# tuning and serving specs in the meta: each package serves the other's file
+# ---------------------------------------------------------------------------
+def _ranges_both(path, q):
+    """The same batch through the port's engine on the CPU and through the
+    reference's facade, each configured from the file's recorded specs."""
+    from repro.api import Index as RefIndex
+    from repro_torch.serve import IndexService
+
+    with IndexService(path, device="cpu") as svc:
+        port = svc.lookup(q)
+        port_spec = svc.spec
+    ref_svc = RefIndex.open(path).serve()
+    try:
+        ref = ref_svc.lookup(q)
+        ref_spec = ref_svc.spec
+    finally:
+        ref_svc.close()
+    return port, ref, port_spec, ref_spec
+
+
+def test_port_written_specs_serve_in_the_reference(data, tmp_path):
+    from repro_torch.api import ServeSpec, TuneSpec
+
+    keys, _, D = data
+    path = str(tmp_path / "port.air")
+    meta = write_index(path, demo_serving_design(D), page_bytes=4096,
+                       tune={"spec": TuneSpec().to_dict(),
+                             "serve": ServeSpec().to_dict()})
+    assert meta.tune["serve"]["backend"] == "pallas"
+    q = keys[np.random.default_rng(7).integers(0, len(keys), 3000)]
+    port, ref, port_spec, ref_spec = _ranges_both(path, q)
+    assert port_spec.backend == "cuda" and ref_spec.backend == "pallas"
+    np.testing.assert_array_equal(port, ref)
+    idx = np.searchsorted(keys, q)
+    assert np.all((port[:, 0] <= 16 * idx) & (port[:, 1] >= 16 * idx + 16))
+
+
+def test_reference_written_specs_serve_in_the_port(data, tmp_path):
+    from repro.api import ServeSpec as RefServeSpec
+    from repro.api import TuneSpec as RefTuneSpec
+    from repro_torch.api import ServeSpec, TuneSpec
+
+    keys, rD, _ = data
+    path = str(tmp_path / "ref.air")
+    tune_spec = RefTuneSpec(families=("btree", "gstep"), k=3,
+                            cache_bytes=(1 << 16,), objective={"p": 0.99})
+    serve_spec = RefServeSpec(backend="pallas", resident_layers=2,
+                              cache_bytes=(1 << 16, 1 << 20))
+    ref_write_index(path, ref_demo(rD), page_bytes=4096,
+                    tune={"spec": tune_spec.to_dict(),
+                          "serve": serve_spec.to_dict()})
+    meta = read_meta_path(path)
+    assert TuneSpec.from_dict(meta.tune["spec"]).to_dict() \
+        == tune_spec.to_dict()
+    assert ServeSpec.from_dict(meta.tune["serve"]).to_dict() \
+        == serve_spec.to_dict()
+    q = keys[np.random.default_rng(8).integers(0, len(keys), 3000)]
+    port, ref, port_spec, ref_spec = _ranges_both(path, q)
+    assert port_spec.backend == "cuda" and port_spec.resident_layers == 2
+    assert ref_spec == serve_spec
+    np.testing.assert_array_equal(port, ref)
