@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and tuning paths on one NVIDIA card.
+"""Drive the PyTorch port's serving, tuning and in-memory lookup paths on
+one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--draws 230000000]
                           [--tune-draws 21000000]
@@ -7,9 +8,10 @@
 Phases (none catches its own failure; any failure exits non-zero):
 
 1. Card: name and power limit from ``nvidia-smi``.
-2. Build: compile both kernels from ``src/repro_torch/csrc`` through the
-   shared build helper, one ``nvcc`` per source, started together; print
-   each kernel's ptxas registers, shared memory and spills.
+2. Build: compile all five kernels from ``src/repro_torch/csrc`` through
+   the shared build helper, one ``nvcc`` per source, all started
+   together; print each kernel's ptxas registers, shared memory and
+   spills.
 3. Fused descent against its plain version: random packed prefixes (L in
    1/2/4, step-only and mixed, P in 128/640/1664/4096, Q in
    1/255/256/4097/65536); the kernel must equal ``fused_descent_torch`` on
@@ -21,7 +23,13 @@ Phases (none catches its own failure; any failure exits non-zero):
    CachedProfile over azure_ssd and a p99 (w = 1) ObjectiveProfile over
    azure_ssd; the kernel must match ``affine_scores_torch`` to rtol 1e-5
    and the float64 oracle to rtol 3e-5.
-5. The serving path at a deployment's size: ~200 M unique int32-domain
+5. The index-lookup kernels against their plain versions: step layers of
+   P in 1/64/127/128/1000/4096, band layers of P in 1/10/300/4096,
+   segmented step layers of P in 4097/20000/81000/823133, each at Q in
+   1/255/256/257/4097/65536/2^20; every kernel must equal its plain
+   version bit for bit, and step and segmented rows the float64
+   ``layer.predict``.
+6. The serving path at a deployment's size: ~200 M unique int32-domain
    keys from the paper's §7.1 100-cluster Gaussian mixture, 16-byte
    records, a gstep(8, 4096) <- gband(1024) <- gstep(8, 4096) index
    written paged with CRCs, served by ``IndexService`` on the card (two
@@ -30,21 +38,39 @@ Phases (none catches its own failure; any failure exits non-zero):
    keys.  Every range must contain its key's record, equal the numpy
    backend's ranges, and a 2,000-key sample must equal
    ``SerializedIndex.lookup``.
-6. The tuning path: ~20 M keys of the same mixture (cut from ~200 M by the
-   run's time limit), one shared ``LayerCache``; ``airtune(k=5)`` and
-   ``beam_search(k=5)`` over the default builders for azure_ssd,
-   azure_nfs and azure_hdd, and ``airtune`` with the p99 (w = 1)
-   objective on azure_ssd, each ranking on the card; each again with
-   ``score_backend="numpy"``, whose cost must agree to rel 1e-6.  The
-   azure_ssd design is written paged and 64 batches x 4096 uniform keys
-   are served from it on the card with every layer that packs resident:
-   ranges must contain their records and equal the numpy backend's.
-7. Numbers: sizes, build/generation times, per-stream qps, lookup wall,
+7. The tuning path: ~20 M keys of the same mixture (cut from ~200 M by the
+   run's time limit).  Generation 0 of phase 8 is
+   ``Index.tune(D, "azure_ssd", TuneSpec(k=5, page_bytes=4096)).build()``,
+   the run's one cold build; its retained ``LayerCache`` serves the
+   other tunes: ``airtune(k=5)`` and ``beam_search(k=5)`` over the
+   default builders for azure_ssd, azure_nfs and azure_hdd, and
+   ``airtune`` with the p99 (w = 1) objective on azure_ssd, each ranking
+   on the card; each again with ``score_backend="numpy"``, whose cost
+   must agree to rel 1e-6.  Generation 0 is saved paged and 64 batches x
+   4096 uniform keys are served from it on the card with every layer
+   that packs resident: ranges must contain their records and equal the
+   numpy backend's.
+8. The facade's loop: generation 0 reopened and served on azure_hdd with
+   persisted stats (64 batches x 4096 keys); ``observe`` must say
+   "retune" and ``detect_drift_from_file`` agree; a warm retune for the
+   observed profile must equal its numpy-ranked twin's design and cost
+   and reuse layers; generation 1 is saved and swapped in while a
+   pipelined stream runs in a second thread: every batch must equal one
+   generation's ranges and ``stats.swaps`` must be 1.
+9. The in-memory Alg. 1: ``traverse_index`` on the card over the same
+   keys for both generations and a gstep(8, 4096) <- gband(1024) <-
+   gstep(8, 4096) design (step, band and segmented kernels), over a
+   uniform stream of 256 batches x 4096 keys and one 2^20-key batch:
+   every range must contain its record, step bottoms must equal the
+   float64 ``lookup_batch``, band bottoms are compared with it.
+10. Numbers: sizes, build/generation times, per-stream qps, lookup wall,
    descent seconds, roofline and hit rate; per tune its wall, sweep
    seconds, stats and the device ranking's copy/kernel/readback split;
-   each kernel's time per launch beside its plain version, its bound and
-   (candidate scoring) a PyTorch yardstick; candidate scoring's times in
-   the kernels line are taken with the L2 flushed before each call.
+   the loop's walls and drift report; ``traverse_index`` lookups/s and
+   batch walls; each kernel's time per launch beside its plain version,
+   its bound and, where one exists, a PyTorch yardstick; candidate
+   scoring's and the lookup kernels' times in the kernels line are taken
+   with the L2 flushed before each call.
 
 The second-to-last line is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -68,6 +94,21 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "src/repro_torch/csrc/fused_descent.cu"
+LOOKUP_KERNELS = {                  # name -> (source, the TPU kernel it replaces)
+    "step_lookup": ("src/repro_torch/csrc/step_lookup.cu",
+                    "src/repro/kernels/index_lookup/kernel.py:67"),
+    "band_lookup": ("src/repro_torch/csrc/band_lookup.cu",
+                    "src/repro/kernels/index_lookup/kernel.py:104"),
+    "segmented_step_lookup": (
+        "src/repro_torch/csrc/segmented_step_lookup.cu",
+        "src/repro/kernels/index_lookup/kernel.py:136"),
+}
+LOOKUP_STEP_P = (1, 64, 127, 128, 1000, 4096)
+LOOKUP_BAND_P = (1, 10, 300, 4096)
+# two-level widths: past the cap, ~the 20.8 M-key bottom layer, phase 6's
+LOOKUP_SEG_P = (4097, 20_000, 81_000, 823_133)
+LOOKUP_Q = (1, 255, 256, 257, 4097, 65536, 1 << 20)
+LOOP_BATCHES = 64
 KERNEL_REPLACES = "src/repro/kernels/fused_descent/kernel.py:96"
 SCORE_SOURCE = "src/repro_torch/csrc/candidate_score.cu"
 SCORE_REPLACES = "src/repro/kernels/candidate_score/kernel.py:34"
@@ -182,7 +223,7 @@ def check_kernel(device, seed: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path at a deployment's size
+# phase 6: the serving path at a deployment's size
 # ---------------------------------------------------------------------------
 def make_keys(draws: int, seed: int) -> np.ndarray:
     """The paper's §7.1 100-cluster Gaussian mixture inside the int32 key
@@ -309,29 +350,37 @@ def time_launches(fn, n: int, reps: int) -> float:
     return float(np.median(per))
 
 
-def trace_device_us(fn, n: int, before=None) -> dict:
+def trace_device_us(fn, n: int, before=None, attempts: int = 3) -> dict:
     """Device time of ``n`` calls of ``fn`` (each after ``before()``, when
     given) from the profiler's CUPTI trace → microseconds per device row
     (kernel or copy) name, summed over the calls.  An operator's row
     repeats the time of the kernels it launched, so only device rows
-    count."""
+    count.  A trace that comes back with no device row at all (the
+    profiler now and then drops a whole trace's device activity) is taken
+    again, up to ``attempts`` times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(10):
-        if before is not None:
-            before()
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+    rows = {}
+    for attempt in range(1, attempts + 1):
+        for _ in range(10):
             if before is not None:
                 before()
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+        if rows:
+            break
+        log(f"profiler trace {attempt} of {attempts} held no device row")
+    return rows
 
 
 def device_ms_per_call(fn, n: int) -> float:
@@ -343,12 +392,13 @@ def device_ms_per_call(fn, n: int) -> float:
 
 
 def build_all() -> None:
-    """Build both kernel libraries, one nvcc per source, started together;
-    print each build's time and ptxas resource lines.  Raises if either
-    build fails."""
+    """Build every kernel library, one nvcc per source, all started
+    together; print each build's time and ptxas resource lines.  Raises if
+    a build fails."""
     from repro_torch.kernels.candidate_score import kernel as CK
     from repro_torch.kernels.fused_descent import kernel as FK
-    libs = (FK.LIB, CK.LIB)
+    from repro_torch.kernels.index_lookup import kernel as IK
+    libs = (FK.LIB, CK.LIB, *IK.LIBS)
 
     def timed_build(lib):
         t0 = time.perf_counter()
@@ -459,7 +509,7 @@ def roofline_bound(nbytes: int, ops: int) -> tuple:
 
 
 def serve_phase(args, device, card, max_err: float) -> dict:
-    """Phase 5 and the fused descent's numbers → its kernels-line entry."""
+    """Phase 6 and the fused descent's numbers → its kernels-line entry."""
     import torch
 
     from repro_torch.api import ServeSpec
@@ -618,15 +668,16 @@ def check_tuned_ranges(design, n_res: int, served: np.ndarray,
             f"B wider per side (f32 slack limit {limit:.1f} B)")
 
 
-def tune_phase(args, device, card, max_rel: float) -> dict:
-    """Phase 6 and the candidate-scoring numbers → its kernels-line entry."""
+def tune_phase(args, device, card, max_rel: float) -> tuple:
+    """Phase 7 and the candidate-scoring numbers → its kernels-line entry
+    and what phases 8-9 take over (the keys, their KeyPositions and
+    generation 0, the facade's azure_ssd tune)."""
     import torch
 
-    from repro_torch.api import ServeSpec
-    from repro_torch.core import (PROFILES, KeyPositions, LayerCache,
+    from repro_torch.api import Index, ServeSpec, TuneSpec
+    from repro_torch.core import (PROFILES, KeyPositions,
                                   affine_coefficients, airtune, beam_search,
-                                  expected_latency, objective_profile,
-                                  write_index)
+                                  expected_latency, objective_profile)
     from repro_torch.core import sweep as sweep_mod
     from repro_torch.kernels.candidate_score import (affine_scores,
                                                      affine_scores_torch)
@@ -656,7 +707,11 @@ def tune_phase(args, device, card, max_rel: float) -> dict:
                            profile=engine.profile)
         return batched_est(engine, W, weights)
 
-    cache = LayerCache()
+    # generation 0 of the facade loop (phase 8) is the azure_ssd airtune:
+    # the run's one cold build; its retained LayerCache serves every other
+    # tune of this phase
+    gen0 = Index.tune(D, "azure_ssd", TuneSpec(k=5, page_bytes=4096))
+    cache = None
     results = {}
     est_batches = 0
     sweep_mod.SweepEngine._batched_est = recording_est
@@ -668,8 +723,12 @@ def tune_phase(args, device, card, max_rel: float) -> dict:
             pair = {}
             for backend in ("cuda", "numpy"):
                 t0 = time.perf_counter()
-                res = fn(D, PROFILES[tier], k=5, layer_cache=cache,
-                         objective=objective, score_backend=backend)
+                if key == "airtune/azure_ssd" and backend == "cuda":
+                    res = gen0.build().result
+                    cache = gen0.layer_cache
+                else:
+                    res = fn(D, PROFILES[tier], k=5, layer_cache=cache,
+                             objective=objective, score_backend=backend)
                 wall = time.perf_counter() - t0
                 st = res.stats
                 pair[backend] = res
@@ -687,6 +746,7 @@ def tune_phase(args, device, card, max_rel: float) -> dict:
                 f"{'equal' if cu.builder_names == nu.builder_names else 'DIFFER'}")
             results[key] = cu
         best = results["airtune/azure_ssd"]
+        assert best is gen0.result, "generation 0 is the azure_ssd airtune"
         exact = expected_latency(best.design, PROFILES["azure_ssd"])
         assert abs(exact - best.cost) <= 1e-9 * best.cost, (exact, best.cost)
         p99 = results["airtune/azure_ssd/p99"]
@@ -697,8 +757,7 @@ def tune_phase(args, device, card, max_rel: float) -> dict:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
         try:
             path = os.path.join(workdir, "tuned.air")
-            write_index(path, best.design, data_record=RECORD_BYTES,
-                        page_bytes=4096)
+            gen0.save(path, data_record=RECORD_BYTES)
             n_res = resident_that_packs(best.design)
             spec = ServeSpec(resident_layers=n_res)
             idx = make_streams(D.n, args.seed + 3, TUNE_BATCHES,
@@ -775,7 +834,437 @@ def tune_phase(args, device, card, max_rel: float) -> dict:
             "launches": cs_launches, "max_abs_err": max_rel,
             "ms": cold["ms"], "plain_ms": cold["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cold["library_ms"]}, {"keys": keys, "D": D,
+                                                "gen0": gen0}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the index-lookup kernels against their plain versions
+# ---------------------------------------------------------------------------
+def lookup_layer(rng, P: int, band: bool) -> tuple:
+    """A random int32 layer of P entries whose first key is 1, so every
+    query in [1, 2^31-2) lies in its domain: step → (keys, pos) with P + 1
+    positions, band → (keys, x1, y1, m, delta)."""
+    step = 997
+    keys = np.concatenate([[1], np.sort(rng.choice(
+        (2**31 - 5) // step, P - 1, replace=False)) * step + 2])
+    keys = keys.astype(np.int32)
+    if band:
+        return (keys, keys.astype(np.float32),
+                np.sort(rng.uniform(0, 2**24, P)).astype(np.float32),
+                rng.uniform(0.0, 0.01, P).astype(np.float32),
+                rng.uniform(1.0, 600.0, P).astype(np.float32))
+    return keys, np.sort(rng.integers(0, 2**30, P + 1)).astype(np.int32)
+
+
+def check_lookup_kernels(device, seed: int) -> dict:
+    """Every tested shape: each index-lookup kernel equals its plain
+    version on the card bit for bit, and step and segmented rows equal the
+    float64 ``layer.predict``.  Returns name → max |kernel − plain| (0
+    when the check passes)."""
+    import torch
+
+    from repro_torch.core import StepLayer
+    from repro_torch.kernels import index_lookup as il
+    from repro_torch.kernels.index_lookup import kernel as IK
+    rng = np.random.default_rng(seed + 5)
+    errs = dict.fromkeys(LOOKUP_KERNELS, 0.0)
+    n_cases = 0
+
+    def on(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in arrays]
+
+    def queries(Q: int, keys: np.ndarray) -> np.ndarray:
+        q = rng.integers(0, 2**31 - 2, Q).astype(np.int32)
+        k = min(Q, 4)
+        q[:k] = keys[rng.integers(0, len(keys), k)]     # equal to keys
+        if Q > 8:
+            q[k] = 0                                     # below the first
+        return q
+
+    def held(name, got, want, what):
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        errs[name] = max(errs[name], float(err))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} != plain at {what}: max |diff| "
+                                 f"{err}")
+
+    for P in LOOKUP_STEP_P + LOOKUP_SEG_P:
+        keys, pos = lookup_layer(rng, P, band=False)
+        layer = StepLayer(piece_keys=keys.astype(np.uint64),
+                          piece_pos=pos.astype(np.int64),
+                          node_piece_off=np.arange(P + 1, dtype=np.int64))
+        kt, plo, phi = on(keys, pos[:-1], pos[1:])
+        seg = P > il.MAX_VMEM_ENTRIES
+        name = "segmented_step_lookup" if seg else "step_lookup"
+        for Q in LOOKUP_Q:
+            q = queries(Q, keys)
+            qt, = on(q)
+            if seg:
+                base = il.segment_bases(kt, qt)
+                got = IK.segmented_step_lookup_cuda(qt, base, kt, plo, phi)
+                want = il.segmented_step_lookup_torch(qt, base, kt, plo, phi)
+            else:
+                got = IK.step_lookup_cuda(qt, kt, plo, phi)
+                want = il.step_lookup_torch(qt, kt, plo, phi)
+            held(name, got, want, f"P={P} Q={Q}")
+            rlo, rhi = layer.predict(q.astype(np.uint64))
+            if not (np.array_equal(got[0].cpu().numpy(), rlo)
+                    and np.array_equal(got[1].cpu().numpy(), rhi)):
+                raise AssertionError(f"{name} != float64 layer.predict at "
+                                     f"P={P} Q={Q}")
+            n_cases += 1
+    for P in LOOKUP_BAND_P:
+        arrays = lookup_layer(rng, P, band=True)
+        ts = on(*arrays)
+        for Q in LOOKUP_Q:
+            qt, = on(queries(Q, arrays[0]))
+            held("band_lookup", IK.band_lookup_cuda(qt, *ts),
+                 il.band_lookup_torch(qt, *ts), f"P={P} Q={Q}")
+            n_cases += 1
+    log(f"index-lookup kernel check: {n_cases} shapes, each kernel == its "
+        f"plain version bit for bit, step and segmented rows == the float64 "
+        f"layer.predict")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the facade's observe → drift → warm retune → swap loop
+# ---------------------------------------------------------------------------
+def designs_equal(a, b) -> bool:
+    if len(a.layers) != len(b.layers):
+        return False
+    for la, lb in zip(a.layers, b.layers):
+        if la.kind != lb.kind:
+            return False
+        fields = (("piece_keys", "piece_pos", "node_piece_off")
+                  if la.kind == "step"
+                  else ("node_keys", "x1", "y1", "m", "delta"))
+        if not all(np.array_equal(getattr(la, f), getattr(lb, f))
+                   for f in fields):
+            return False
+    return True
+
+
+def loop_phase(args, tuned: dict):
+    """Phase 8: generation 0 saved, served on azure_hdd with persisted
+    stats, observed; a warm retune for the observed profile (checked
+    against its numpy-ranked twin) saved as generation 1 and swapped in
+    under a pipelined stream in a second thread → generation 1's Index."""
+    import threading
+
+    from repro_torch.api import Index, detect_drift_from_file
+    from repro_torch.core import affine_coefficients
+    keys, D, gen0 = tuned["keys"], tuned["D"], tuned["gen0"]
+    idx = make_streams(D.n, args.seed + 5, LOOP_BATCHES, BATCH)["uniform"]
+    batches = np.split(keys[idx], LOOP_BATCHES)
+    deployed = dict(profile="azure_hdd", resident_layers=0)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        paths = [os.path.join(workdir, f"gen{g}.air") for g in (0, 1)]
+        gen0.save(paths[0], data_record=RECORD_BYTES)
+        opened = Index.open(paths[0], data=D)
+        t0 = time.perf_counter()
+        svc = opened.serve(persist_stats=True, **deployed)
+        try:
+            truth0 = svc.lookup_batches(batches)
+            report = opened.observe(svc)
+            served = dataclasses.replace(svc.stats)
+        finally:
+            svc.close()
+        t_serve = time.perf_counter() - t0
+        check_ranges(np.concatenate(truth0), idx, "generation 0 on azure_hdd")
+        assert served.device_batches == served.batches == LOOP_BATCHES, \
+            served
+        log(f"loop: generation 0 ({gen0.design.describe()}) served "
+            f"{LOOP_BATCHES} batches on azure_hdd in {t_serve:.3f} s; "
+            f"{report.describe()}")
+        if report.action != "retune":
+            raise AssertionError(f"generation 0 on azure_hdd: the drift "
+                                 f"report says {report.action!r}, not "
+                                 f"'retune'")
+        offline = detect_drift_from_file(paths[0])
+        if offline is None or offline.action != report.action:
+            raise AssertionError(f"detect_drift_from_file disagrees: "
+                                 f"{offline and offline.describe()}")
+        prof = report.observed_profile
+        folds = affine_coefficients(prof) is not None
+        t0 = time.perf_counter()
+        gen1 = gen0.retune(prof, warm_start=True).build()
+        t_retune = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        twin = gen0.retune(prof, warm_start=True,
+                           score_backend="numpy").build()
+        t_twin = time.perf_counter() - t0
+        r1, rt = gen1.result, twin.result
+        if (r1.builder_names != rt.builder_names
+                or not designs_equal(r1.design, rt.design)
+                or not abs(r1.cost - rt.cost) <= 1e-6 * abs(rt.cost)):
+            raise AssertionError(f"warm retune: cuda {r1.builder_names} "
+                                 f"{r1.cost!r} != numpy {rt.builder_names} "
+                                 f"{rt.cost!r}")
+        if not r1.stats.layers_reused > 0:
+            raise AssertionError(f"warm retune reused no layer: {r1.stats}")
+        log(f"loop: observed profile {prof!r} "
+            f"{'folds to affine coefficients and ranks on the card' if folds else 'does not fold to affine coefficients, so the retune ranks on exact numpy by design'}; "
+            f"warm retune {t_retune:.3f} s (numpy twin {t_twin:.3f} s), "
+            f"{list(r1.builder_names)} cost {r1.cost!r} (twin {rt.cost!r}, "
+            f"same design); stats " + json.dumps(dataclasses.asdict(r1.stats)))
+        gen1.save(paths[1], data_record=RECORD_BYTES)
+        with Index.open(paths[1], data=D).serve(**deployed) as svc1:
+            truth1 = svc1.lookup_batches(batches)
+        check_ranges(np.concatenate(truth1), idx, "generation 1")
+
+        svc = opened.serve(pipeline_depth=2, **deployed)
+        out = {}
+        worker = threading.Thread(
+            target=lambda: out.update(r=svc.lookup_batches(batches)),
+            daemon=True)
+        try:
+            worker.start()
+            while svc.stats.batches < LOOP_BATCHES // 4 and worker.is_alive():
+                time.sleep(0.0005)
+            old_stats = svc.stats
+            t0 = time.perf_counter()
+            svc.swap(paths[1])
+            t_swap = time.perf_counter() - t0
+            worker.join(timeout=600)
+            if worker.is_alive():
+                raise AssertionError("the serving thread did not finish "
+                                     "within 600 s of the swap")
+            swaps = svc.stats.swaps
+            per_epoch = (old_stats.batches, svc.stats.batches)
+        finally:
+            svc.close()
+        if "r" not in out:
+            raise AssertionError("the serving thread failed during the swap")
+        n_from = [0, 0, 0]          # generation 0 only, 1 only, either
+        for i, got in enumerate(out["r"]):
+            eq = [np.array_equal(got, t[i]) for t in (truth0, truth1)]
+            if not any(eq):
+                raise AssertionError(f"swap: batch {i} equals neither "
+                                     f"generation's ranges")
+            n_from[2 if all(eq) else eq.index(True)] += 1
+        if swaps != 1 or sum(per_epoch) != LOOP_BATCHES:
+            raise AssertionError(f"stats.swaps == {swaps} (want 1); batches "
+                                 f"per epoch {per_epoch}")
+        differ = sum(not np.array_equal(a, b) for a, b in zip(truth0, truth1))
+        log(f"loop: swap took {t_swap:.6f} s under a pipelined stream; "
+            f"{per_epoch[0]} batches served on generation 0's epoch, "
+            f"{per_epoch[1]} on generation 1's; the generations' ranges "
+            f"differ on {differ} of {LOOP_BATCHES} batches; of "
+            f"{LOOP_BATCHES} batches {n_from[0]} match generation 0 only, "
+            f"{n_from[1]} generation 1 only, {n_from[2]} both; no batch "
+            f"mixes generations; stats.swaps == 1; detect_drift_from_file "
+            f"agrees ({offline.action})")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return gen1
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the in-memory Alg. 1 on the card
+# ---------------------------------------------------------------------------
+def traverse_stream(name: str, layers: list, design, keys: np.ndarray,
+                    idx: np.ndarray, big: np.ndarray, device) -> dict:
+    """One design through ``traverse_index`` on a uniform stream and one
+    2^20-key batch; every range must contain its record; a step bottom
+    must equal the float64 ``lookup_batch``, a band bottom is compared
+    with it (count and size of the differences)."""
+    import torch
+
+    from repro_torch.core import lookup_batch
+    from repro_torch.kernels.index_lookup import traverse_index
+
+    def run(ix):
+        qt = torch.from_numpy(keys[ix].astype(np.int32)).to(device)
+        lo, hi = traverse_index(layers, qt)
+        return torch.stack([lo, hi], 1).cpu().numpy().astype(np.int64)
+
+    torch.cuda.synchronize()
+    walls, out = [], []
+    t_all = time.perf_counter()
+    for b in range(N_BATCHES):
+        t0 = time.perf_counter()
+        out.append(run(idx[b * BATCH:(b + 1) * BATCH]))
+        walls.append(time.perf_counter() - t0)
+    stream_wall = time.perf_counter() - t_all
+    t0 = time.perf_counter()
+    rbig = run(big)
+    big_wall = time.perf_counter() - t0
+    walls = np.asarray(walls)
+    rep = {"layers": design.n_layers, "bottom": design.layers[0].kind,
+           "lookups_per_s": len(idx) / stream_wall,
+           "batch_wall_mean_s": float(walls.mean()),
+           "batch_wall_median_s": float(np.median(walls)),
+           "batch_wall_p99_s": float(np.quantile(walls, 0.99)),
+           "big_batch_wall_s": big_wall,
+           "big_batch_lookups_per_s": len(big) / big_wall}
+    for ranges, ix, what in ((np.concatenate(out), idx, "stream"),
+                             (rbig, big, "2^20 batch")):
+        check_ranges(ranges, ix, f"{name} {what}")
+        mem = lookup_batch(design, keys[ix])
+        ref = np.stack([mem.lo, mem.hi], 1).astype(np.int64)
+        if rep["bottom"] == "step":
+            if not np.array_equal(ranges, ref):
+                raise AssertionError(f"{name} {what}: step-bottom ranges != "
+                                     f"the float64 lookup_batch")
+            rep[f"{what} vs lookup_batch"] = "equal"
+        else:
+            d = np.abs(ranges - ref)
+            rep[f"{what} vs lookup_batch"] = {
+                "rows_differing": int(np.count_nonzero(d.any(axis=1))),
+                "rows": len(ix), "max_abs_diff_lo": int(d[:, 0].max()),
+                "max_abs_diff_hi": int(d[:, 1].max())}
+    return rep
+
+
+def lookup_kernel_entry(name: str, kern, plain, library, nbytes: int,
+                        ops: int, launches: int, err: float, card: str,
+                        shape: str) -> dict:
+    """One index-lookup kernel's numbers at a main-path shape → its
+    kernels-line entry: device times L2-cold (a 128 MiB rewrite before
+    each call) as the kernels line holds them, back to back beside."""
+    cold = {"ms": cold_device_ms(kern, 50),
+            "plain_ms": cold_device_ms(plain, 50),
+            "library_ms": cold_device_ms(library, 50) if library else None}
+    warm = {"ms": device_ms_per_call(kern, 200),
+            "plain_ms": device_ms_per_call(plain, 200),
+            "library_ms": device_ms_per_call(library, 200) if library
+            else None}
+    call_ms = time_launches(kern, 200, 15)
+    bound_ms, bound_by = roofline_bound(nbytes, ops)
+
+    def us(v):
+        return "n/a" if v is None else f"{v * 1e3:.3f} us"
+
+    log(f"{name} at {shape} on {card}: device time per call with the L2 "
+        f"flushed {us(cold['ms'])} (plain torch {us(cold['plain_ms'])}; "
+        f"torch.searchsorted + gather {us(cold['library_ms'])}), back to back "
+        f"{us(warm['ms'])} (plain {us(warm['plain_ms'])}; yardstick "
+        f"{us(warm['library_ms'])}); wrapper call back to back "
+        f"{us(call_ms)}; bound {bound_ms * 1e3:.4f} us by {bound_by} "
+        f"({nbytes} B, {ops} ops); {launches} launches on the in-memory "
+        f"Alg. 1 path")
+    source, replaces = LOOKUP_KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": cold["ms"], "plain_ms": cold["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": cold["library_ms"]}
+
+
+def alg1_phase(args, device, card, tuned: dict, gen1, errs: dict) -> list:
+    """Phase 9: ``traverse_index`` on the card over the tuning phase's keys
+    for both loop generations and a gstep(8, 4096) <- gband(1024) <-
+    gstep(8, 4096) design, then each lookup kernel's numbers at that
+    design's shapes → the three kernels-line entries."""
+    import torch
+
+    from repro_torch.kernels import index_lookup as il
+    from repro_torch.kernels.index_lookup import kernel as IK
+    keys, D = tuned["keys"], tuned["D"]
+    t0 = time.perf_counter()
+    manual = build_design(keys)
+    t_build = time.perf_counter() - t0
+    designs = {"generation 0": tuned["gen0"].design,
+               "generation 1": gen1.design, "gstep<-gband<-gstep": manual}
+    idx = make_streams(D.n, args.seed + 6, N_BATCHES, BATCH)["uniform"]
+    big = np.random.default_rng(args.seed + 7).integers(0, D.n, 1 << 20)
+    planes = {name: il.device_arrays_from_design(d)
+              for name, d in designs.items()}
+    for lib in IK.LIBS:
+        lib.reset_launches()                 # the in-memory path starts here
+    reports = {name: traverse_stream(name, planes[name], d, keys, idx, big,
+                                     device)
+               for name, d in designs.items()}
+    launches = {lib.name: lib.launches() for lib in IK.LIBS}  # ... ends here
+    want = sum(d.n_layers for d in designs.values()) * (N_BATCHES + 1)
+    for name, d in designs.items():
+        log(f"in-memory Alg. 1, {name} ({d.describe()}): "
+            + json.dumps(reports[name]))
+    if not (all(n > 0 for n in launches.values())
+            and sum(launches.values()) == want):
+        raise AssertionError(f"in-memory Alg. 1 launches {launches}, "
+                             f"expected {want} in all, each kernel > 0")
+    log(f"in-memory Alg. 1 path: {len(designs)} designs x ({N_BATCHES} "
+        f"batches + one 2^20 batch), launches {launches}; every range "
+        f"contains its record; step bottoms equal lookup_batch; manual "
+        f"design built in {t_build:.1f} s")
+
+    # -- each kernel at the manual design's shapes (the stream's batch) ------
+    ml = planes["gstep<-gband<-gstep"]
+    bottom, band, top = ml[0], ml[1], ml[2]
+    Pb, Pm, Pt = (int(x.shape[0]) for x in (bottom["piece_keys"],
+                                            band["node_keys"],
+                                            top["piece_keys"]))
+    assert Pb > il.MAX_VMEM_ENTRIES >= max(Pm, Pt), (Pb, Pm, Pt)
+    q = keys[idx[-BATCH:]].astype(np.int32)
+    qt = torch.from_numpy(q).to(device)
+    Q = BATCH
+    entries = []
+
+    def step_parts(layer):
+        k = layer["piece_keys"]
+        pos = layer["piece_pos"]
+        plo, phi = pos[:-1], pos[1:]
+        # the yardstick's gather table: entry r of searchsorted-right is
+        # piece max(r − 1, 0)
+        pos2 = torch.stack([plo, phi], 1)
+        table = torch.cat([pos2[:1], pos2]).contiguous()
+        return k, plo, phi, table
+
+    k, plo, phi, table = step_parts(top)
+    got = IK.step_lookup_cuda(qt, k, plo, phi)
+    want_ = il.step_lookup_torch(qt, k, plo, phi)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want_))
+    entries.append(lookup_kernel_entry(
+        "step_lookup", lambda: IK.step_lookup_cuda(qt, k, plo, phi),
+        lambda: il.step_lookup_torch(qt, k, plo, phi),
+        lambda: table[torch.searchsorted(k, qt, right=True)],
+        4 * Q + 12 * Pt + 8 * Q, Q * math.ceil(math.log2(Pt + 1)),
+        launches["step_lookup"], errs["step_lookup"], card,
+        f"the top layer (Q={Q}, P={Pt})"))
+
+    bt = [band[f] for f in ("node_keys", "x1", "y1", "m", "delta")]
+    got = IK.band_lookup_cuda(qt, *bt)
+    want_ = il.band_lookup_torch(qt, *bt)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want_))
+    entries.append(lookup_kernel_entry(
+        "band_lookup", lambda: IK.band_lookup_cuda(qt, *bt),
+        lambda: il.band_lookup_torch(qt, *bt), None,
+        4 * Q + 20 * Pm + 8 * Q, Q * (math.ceil(math.log2(Pm + 1)) + 7),
+        launches["band_lookup"], errs["band_lookup"], card,
+        f"the band layer (Q={Q}, P={Pm})"))
+
+    k, plo, phi, table = step_parts(bottom)
+    base = il.segment_bases(k, qt)
+    got = IK.segmented_step_lookup_cuda(qt, base, k, plo, phi)
+    want_ = il.segmented_step_lookup_torch(qt, base, k, plo, phi)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want_))
+    # bytes this batch needs: queries, bases and outputs, the keys of every
+    # segment it touches, the positions of every entry it picks
+    bases = np.unique(base.cpu().numpy()).astype(np.int64)
+    seg_keys = int(np.minimum(il.LANE, Pb - bases).sum())
+    picked = np.unique(np.maximum(np.searchsorted(
+        k.cpu().numpy(), q, side="right") - 1, 0)).size
+    entries.append(lookup_kernel_entry(
+        "segmented_step_lookup",
+        lambda: IK.segmented_step_lookup_cuda(qt, base, k, plo, phi),
+        lambda: il.segmented_step_lookup_torch(qt, base, k, plo, phi),
+        lambda: table[torch.searchsorted(k, qt, right=True)],
+        16 * Q + 4 * seg_keys + 8 * picked,
+        Q * (int(math.log2(il.LANE)) + 1),
+        launches["segmented_step_lookup"], errs["segmented_step_lookup"],
+        card, f"the bottom layer (Q={Q}, P={Pb}, {len(bases)} segments "
+        f"touched)"))
+    return entries
 
 
 def main(argv=None) -> int:
@@ -802,11 +1291,14 @@ def main(argv=None) -> int:
     build_all()                                           # phase 2
     fd_err = check_kernel(device, args.seed)              # phase 3
     cs_err = check_scores(device, args.seed)              # phase 4
-    fused = serve_phase(args, device, card, fd_err)       # phase 5
-    scores = tune_phase(args, device, card, cs_err)       # phase 6
+    il_err = check_lookup_kernels(device, args.seed)      # phase 5
+    fused = serve_phase(args, device, card, fd_err)       # phase 6
+    scores, tuned = tune_phase(args, device, card, cs_err)  # phase 7
+    gen1 = loop_phase(args, tuned)                        # phase 8
+    lookups = alg1_phase(args, device, card, tuned, gen1, il_err)  # phase 9
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [fused, scores]}))
+    print(json.dumps({"kernels": [fused, scores, *lookups]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

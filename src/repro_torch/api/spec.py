@@ -233,7 +233,8 @@ class ServeSpec:
                      its fused device descent.
     interpret:       kept so that JAX-written metas round-trip; ignored.
     coalesce_gap:    merge missing-page runs separated by ≤ this many bytes.
-    persist_stats:   stats persistence is not ported yet; True raises.
+    persist_stats:   write each epoch's ServeStats snapshot next to the
+                     index (``<path>.stats.json``) on close and on swap.
     pipeline_depth:  batches prefetched ahead by ``lookup_batches``'s
                      background stage (0 = unpipelined serving).
     prefetch_layers: disk layers the prefetch stage walks ahead per
@@ -274,10 +275,6 @@ class ServeSpec:
         if self.backend not in SERVE_BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"one of {SERVE_BACKENDS}")
-        if self.persist_stats:
-            raise NotImplementedError(
-                "persist_stats is not ported yet (ROADMAP queue 1, "
-                "'Serving engine': persisted stats)")
         if self.cache_profile is not None \
                 and self.cache_profile not in PROFILES:
             raise ValueError(

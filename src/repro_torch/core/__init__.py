@@ -1,7 +1,7 @@
 """AirIndex core for the PyTorch port: key-position collections, layers,
 builders and their registries, storage profiles, the Eq. (6) cost, the
-AirTune search strategies with the fused sweep engine, the baselines and
-the on-disk index format.  Host-side numpy, bit-identical to the JAX
+AirTune search strategies with the fused sweep engine, the baselines, the
+batched float64 Alg. 1 (``lookup_batch``) and the on-disk index format.  Host-side numpy, bit-identical to the JAX
 package's ``repro.core`` on what it covers; the sweep engine ranks
 candidates on the card by default (``score_backend="cuda"``)."""
 from .airtune import (SearchStrategy, TuneResult, TuneStats, airtune,
@@ -27,9 +27,11 @@ from .nodes import (BAND_NODE_BYTES, STEP_PIECE_BYTES, BandLayer, StepLayer,
 from .registry import (BUILDER_FAMILIES, MULTI_LAM_FAMILIES,
                        SEARCH_STRATEGIES, Registry, register_builder,
                        register_multi_lam_builder, register_strategy)
+from .lookup import (LookupResult, last_mile_search, lookup_batch,
+                     verify_lookup)
 from .serialize import (IndexFileMeta, LayerMeta, SerializedIndex,
-                        lookup_serialized, parse_meta, read_meta_path,
-                        write_index)
+                        lookup_serialized, materialize_design, parse_meta,
+                        read_meta_path, write_index)
 from .storage import (PROFILES, AffineProfile, AffineUniformProfile,
                       CachedProfile, DistributionalProfile, MeasuredProfile,
                       ObjectiveProfile, StorageProfile, affine_coefficients,

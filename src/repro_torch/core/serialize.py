@@ -32,8 +32,9 @@ import zlib
 import numpy as np
 
 from .descent import descend_band_layer, descend_step_layer
+from .keyset import KeyPositions
 from .latency import IndexDesign
-from .nodes import StepLayer
+from .nodes import BandLayer, StepLayer
 
 MAGIC = 0x41495249  # "AIRI"
 _STEP_DT = np.dtype([("key", "<u8"), ("pos", "<i8")])
@@ -209,6 +210,35 @@ def read_meta_path(path: str) -> IndexFileMeta:
     be = open_file_backend(path)
     try:
         return parse_meta(be.pread)
+    finally:
+        be.close()
+
+
+def materialize_design(path: str, data: KeyPositions) -> IndexDesign:
+    """Full deserialization (round-trips, re-tuning); real lookups use
+    ranges.  Step node grouping and band ``clamp_lo`` are not persisted:
+    each piece reads back as a node and ``clamp_lo`` as 0."""
+    be = open_file_backend(path)
+    try:
+        meta = parse_meta(be.pread)
+        layers = []
+        for lm in meta.layers:
+            raw = be.pread(lm.size, lm.offset)
+            if lm.kind == "step":
+                rec = np.frombuffer(raw, dtype=_STEP_DT)
+                pos = np.append(rec["pos"].astype(np.int64), lm.end_pos)
+                off = np.arange(len(rec) + 1, dtype=np.int64)
+                layers.append(StepLayer(piece_keys=rec["key"].copy(),
+                                        piece_pos=pos,
+                                        node_piece_off=off))
+            else:
+                rec = np.frombuffer(raw, dtype=_BAND_DT)
+                layers.append(BandLayer(
+                    node_keys=rec["x1"].copy(), x1=rec["x1"].copy(),
+                    y1=rec["y1"].astype(np.int64), m=rec["m"].copy(),
+                    delta=rec["delta"].copy(),
+                    clamp_lo=0, clamp_hi=lm.end_pos))
+        return IndexDesign(layers=tuple(layers), data=data)
     finally:
         be.close()
 

@@ -21,15 +21,22 @@ index file:
 
 Every byte comes through a :class:`repro_torch.serve.StorageBackend` under
 the spec's :class:`repro_torch.api.RetryPolicy`, with per-page CRC32
-verification.  The engine is the JAX package's ``repro.serve.index_service``
-with the same windows, cache contents and counters; hot swap, persisted
-stats and the observed-profile fits are not ported yet.
+verification.  :meth:`IndexService.swap` replaces the served file under
+live traffic; with ``spec.persist_stats`` each epoch's :class:`ServeStats`
+is persisted next to the index (``<path>.stats.json``, a rotating window)
+on close and on swap, and the observed-profile fits turn a snapshot into
+the ``T(Δ)`` a drift-triggered retune tunes for (:mod:`repro_torch.api.drift`).
+The engine is the JAX package's ``repro.serve.index_service`` with the
+same windows, cache contents, counters and stats files.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import threading
 import time
+import warnings
 from collections import OrderedDict
 
 import numpy as np
@@ -39,7 +46,9 @@ from repro_torch.core.serialize import (_BAND_DT, _STEP_DT, gallop_step,
                                         page_crc, page_span, parse_meta,
                                         predict_from_records,
                                         record_aligned_range, window_misses)
-from repro_torch.core.storage import PROFILES
+from repro_torch.core.storage import (PROFILES, CachedProfile,
+                                      DistributionalProfile, MeasuredProfile,
+                                      StorageProfile)
 from repro_torch.kernels.fused_descent import (FusedDescent,
                                                fused_descent_with_backend,
                                                pack_prefix, resolve_device)
@@ -48,8 +57,13 @@ from repro_torch.serve.backend import (CorruptPageError,
                                        ReadError)
 
 DEFAULT_PAGE_BYTES = 4096
+
+STATS_SUFFIX = ".stats.json"   # ServeStats snapshots live next to the index
+STATS_WINDOW = 16              # rotating window: snapshots kept per file
 READ_SAMPLE_CAP = 512          # measured (Δ, seconds) pread samples retained
 LOOKUP_SAMPLE_CAP = 512        # per-lookup (n, wall) samples retained
+MIN_FIT_SAMPLES = 8            # reservoir samples needed before any
+#                                observed-profile fit says anything
 
 
 def demo_serving_design(D):
@@ -152,6 +166,8 @@ class ServeStats:
     io_timeouts: int = 0        # preads past the per-pread deadline
     degraded_runs: int = 0      # coalesced runs split to page granularity
     corrupt_pages: int = 0      # CRC32 failures detected (each refetched once)
+    swaps: int = 0              # live index hot-swaps performed (counted on
+    #                             the service's new epoch stats)
     device_batches: int = 0     # batches whose resident descent ran fused
     #                             on the "cuda" backend
     pipelined_batches: int = 0  # batches served through lookup_batches'
@@ -183,6 +199,10 @@ class ServeStats:
     def hit_rate(self) -> float:
         touched = self.pages_hit + self.pages_fetched
         return self.pages_hit / touched if touched else 0.0
+
+    @property
+    def bytes_saved(self) -> int:
+        return self.bytes_from_cache
 
     @property
     def query_modeled_seconds(self) -> float:
@@ -306,6 +326,151 @@ class ServeStats:
 
 
 # ---------------------------------------------------------------------------
+# ServeStats persistence (the observe → retune loop)
+# ---------------------------------------------------------------------------
+def stats_path(index_path: str) -> str:
+    """Where an index file's ServeStats snapshots live (next to the meta)."""
+    return index_path + STATS_SUFFIX
+
+
+def save_stats_snapshot(index_path: str, stats: ServeStats, *,
+                        profile_name: str | None = None,
+                        window: int = STATS_WINDOW) -> str:
+    """Append one snapshot to ``<index_path>.stats.json``, keeping only the
+    last ``window`` snapshots (rotating).  Returns the stats-file path."""
+    path = stats_path(index_path)
+    history = load_stats_history(index_path)
+    history.append({"profile": profile_name, "stats": stats.snapshot()})
+    history = history[-max(int(window), 1):]
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"version": 1, "snapshots": history}, f)
+    os.replace(tmp, path)      # atomic: a reader never sees a torn file
+    return path
+
+
+def load_stats_history(index_path: str) -> list:
+    """All persisted snapshots (oldest first); [] when none/unreadable.
+
+    Never raises: a file that cannot be decoded warns and loads as empty,
+    and malformed snapshot entries are skipped with a warning."""
+    path = stats_path(index_path)
+    try:
+        with open(path) as f:
+            d = json.load(f)
+    except OSError:
+        return []          # no snapshot yet: the normal cold-start case
+    except ValueError:
+        warnings.warn(f"corrupt stats file {path!r}: not valid JSON; "
+                      f"treating as empty", RuntimeWarning, stacklevel=2)
+        return []
+    if not isinstance(d, dict):
+        warnings.warn(f"corrupt stats file {path!r}: expected an object, "
+                      f"got {type(d).__name__}; treating as empty",
+                      RuntimeWarning, stacklevel=2)
+        return []
+    snaps = d.get("snapshots") or []
+    if not isinstance(snaps, list):
+        warnings.warn(f"corrupt stats file {path!r}: 'snapshots' is not a "
+                      f"list; treating as empty", RuntimeWarning,
+                      stacklevel=2)
+        return []
+    good = [s for s in snaps if isinstance(s, dict)]
+    if len(good) != len(snaps):
+        warnings.warn(f"stats file {path!r}: skipped "
+                      f"{len(snaps) - len(good)} malformed snapshot(s)",
+                      RuntimeWarning, stacklevel=2)
+    return good
+
+
+def load_serve_stats(index_path: str) -> ServeStats | None:
+    """The latest loadable persisted :class:`ServeStats` of an index file;
+    snapshots that fail to decode are skipped newest-first, with a
+    warning."""
+    for snap in reversed(load_stats_history(index_path)):
+        try:
+            return ServeStats.from_snapshot(snap["stats"])
+        except (KeyError, TypeError, ValueError, IndexError):
+            warnings.warn(
+                f"stats file {stats_path(index_path)!r}: skipping a "
+                f"snapshot that does not decode as ServeStats",
+                RuntimeWarning, stacklevel=2)
+    return None
+
+
+def cacheable_working_set(meta, resident_layers: int = 1) -> int:
+    """Bytes the block cache can usefully hold for an index file: the
+    serialized sizes of every non-resident layer."""
+    L = len(meta.layers)
+    n_res = min(max(int(resident_layers), 1), L) if L else 0
+    return int(sum(lm.size for lm in meta.layers[:L - n_res]))
+
+
+def untainted_read_samples(stats: ServeStats) -> list:
+    """Reservoir samples eligible for any profile fit: reads tagged
+    ``tainted`` (retried, past a deadline, or repairing a corrupt page)
+    measure the fault, not the tier, and are never fitted."""
+    return [r for r in stats.read_samples if not (len(r) > 3 and r[3])]
+
+
+def _fit_eligible_samples(stats: ServeStats, min_samples: int) -> list:
+    """Untainted samples, without the ``overlapped`` (prefetch-stage) ones
+    whenever enough blocking samples remain."""
+    clean = untainted_read_samples(stats)
+    blocking = [r for r in clean if not (len(r) > 2 and r[2])]
+    return blocking if len(blocking) >= min_samples else clean
+
+
+def measured_backing_profile(
+        stats: ServeStats,
+        min_samples: int = MIN_FIT_SAMPLES) -> MeasuredProfile | None:
+    """Monotone ``T(Δ)`` through the measured pread samples (per-size
+    median wall-clock); None with too few eligible samples or sizes."""
+    samples = _fit_eligible_samples(stats, min_samples)
+    if len(samples) < min_samples:
+        return None
+    sizes = np.asarray([r[0] for r in samples], dtype=np.float64)
+    secs = np.asarray([r[1] for r in samples], dtype=np.float64)
+    uniq = np.unique(sizes)
+    if len(uniq) < 2:
+        return None
+    med = [float(np.median(secs[sizes == u])) for u in uniq]
+    return MeasuredProfile(deltas=tuple(float(u) for u in uniq),
+                           seconds=tuple(med), name="observed-preads")
+
+
+def distributional_backing_profile(
+        stats: ServeStats, min_samples: int = MIN_FIT_SAMPLES,
+        qs=(0.5, 0.9, 0.95, 0.99)) -> DistributionalProfile | None:
+    """Per-Δ latency distributions from the pread reservoir, with the
+    eligibility of :func:`measured_backing_profile`."""
+    samples = _fit_eligible_samples(stats, min_samples)
+    return DistributionalProfile.fit(
+        [(r[0], r[1]) for r in samples], min_samples=min_samples, qs=qs,
+        name="observed-pread-dist")
+
+
+def observed_profile_from_stats(stats: ServeStats, backing: StorageProfile,
+                                cache: StorageProfile | None = None, *,
+                                measured: bool = True,
+                                min_samples: int = MIN_FIT_SAMPLES,
+                                distributional: bool = False) -> CachedProfile:
+    """Fold observed serving behavior into an effective ``T(Δ)``: the
+    stats' hit rate over the measured backing fit (distributional first
+    when asked, then the mean fit) where the samples support one, else
+    over the modeled ``backing``.  A pure function of the snapshot."""
+    eff = backing
+    if measured:
+        m = (distributional_backing_profile(stats, min_samples=min_samples)
+             if distributional else None)
+        if m is None:
+            m = measured_backing_profile(stats, min_samples=min_samples)
+        if m is not None:
+            eff = m
+    return CachedProfile(backing=eff, cache=cache, hit_rate=stats.hit_rate)
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 class _ServeState:
@@ -344,6 +509,10 @@ class IndexService:
     device:   where the resident prefix lives for the ``"cuda"`` backend.
               ``None`` is the card, and raises when there is none; pass
               ``"cpu"`` to run the plain PyTorch version instead.
+
+    All epoch-specific objects live in a :class:`_ServeState`;
+    ``meta``/``cache``/``stats``/... are properties onto the current epoch
+    so :meth:`swap` can replace them atomically under live traffic.
     """
 
     def __init__(self, path: str, *, profile="azure_ssd", spec=None,
@@ -361,12 +530,17 @@ class IndexService:
         # (and their retry sleeps) run outside it
         self._mu = threading.Lock()
         st, spec = self._open_state(path, spec)
+        self._apply_spec(spec)
+        self._state = st
+
+    def _apply_spec(self, spec) -> None:
+        """Service-level views of a resolved (validated) ServeSpec."""
         self.spec = spec
         self.retry = spec.retry
         self.cache_profile = (PROFILES[spec.cache_profile]
                               if spec.cache_profile else None)
         self.coalesce_gap = int(spec.coalesce_gap)
-        self._state = st
+        self.persist_stats = bool(spec.persist_stats)
 
     def _open_state(self, path: str, spec):
         """Open ``path`` into a fresh :class:`_ServeState` (meta read, spec
@@ -510,6 +684,10 @@ class IndexService:
         return self._st.meta
 
     @property
+    def tune_meta(self):
+        return self._st.tune_meta
+
+    @property
     def stats(self) -> ServeStats:
         return self._st.stats
 
@@ -545,10 +723,54 @@ class IndexService:
         if dead:
             st.storage.close()
 
+    def _persist(self, st: _ServeState) -> None:
+        """Best-effort snapshot of an epoch's stats (``persist_stats``)."""
+        if not self.persist_stats:
+            return
+        try:
+            save_stats_snapshot(st.path, st.stats,
+                                profile_name=getattr(self.profile, "name",
+                                                     None))
+        except OSError:
+            pass          # a read-only deployment must still close and swap
+
+    def swap(self, path: str, *, spec=None) -> None:
+        """Hot-swap serving to ``path`` (e.g. a freshly retuned index) under
+        live traffic.  The new file is fully opened (meta, CRC table,
+        resident prefix, cold cache, fresh :class:`ServeStats`) before the
+        switch, and the switch is one pointer move under the service lock:
+        batches in flight pinned the old epoch and finish on it; batches
+        arriving after ``swap`` returns serve from the new one, so no
+        result mixes two files.  The old epoch's stats are persisted
+        (``persist_stats``) and its backend closes when its last batch
+        unpins.  ``spec=None`` keeps the current spec; the fresh stats
+        carry only the ``swaps`` counter forward."""
+        if self._state is None:
+            raise RuntimeError("swap() on a closed IndexService")
+        st_new, resolved = self._open_state(
+            path, spec if spec is not None else self.spec)
+        with self._mu:
+            old = self._state
+            if old is None:            # closed while the new epoch opened
+                st_new.storage.close()
+                raise RuntimeError("swap() on a closed IndexService")
+            st_new.stats.swaps = old.stats.swaps + 1
+            self._state = st_new
+            self.path = path
+            old.retired = True
+            dead = old.pins == 0
+        if spec is not None:
+            self._apply_spec(resolved)
+        self._persist(old)
+        if dead:
+            old.storage.close()
+
     # -- lifecycle ----------------------------------------------------------
     def close(self) -> None:
-        """Idempotent; drains the prefetch worker, then releases the
-        backend (at once, or when the last in-flight batch unpins)."""
+        """Idempotent; drains the prefetch worker, then (``persist_stats``)
+        writes the final ServeStats snapshot to ``<path>.stats.json`` and
+        releases the backend (at once, or when the last in-flight batch
+        unpins)."""
         ex = getattr(self, "_executor", None)
         if ex is not None:
             ex.shutdown(wait=True)   # no prefetch pread may outlive the fd
@@ -563,7 +785,8 @@ class IndexService:
             self._final_state = st
             st.retired = True
             dead = st.pins == 0
-        if dead:
+        self._persist(st)
+        if dead:              # stragglers (if any) close on last unpin
             st.storage.close()
 
     def __enter__(self) -> "IndexService":
@@ -1045,3 +1268,51 @@ class IndexService:
             return e, e, np.empty(0, dtype=np.uint64)
         return (np.concatenate(los), np.concatenate(his),
                 np.concatenate(qs))
+
+    # -- the observe → retune loop -------------------------------------------
+    @property
+    def tune_spec(self):
+        """The TuneSpec recorded in the file meta (or None)."""
+        spec = (self.tune_meta or {}).get("spec")
+        if spec is None:
+            return None
+        from repro_torch.api.spec import TuneSpec   # lazy: api sits above
+        try:
+            return TuneSpec.from_dict(spec)
+        except (TypeError, ValueError):
+            return None   # forward-version provenance: serve anyway
+
+    def cached_profile(self, backing: StorageProfile | None = None) -> CachedProfile:
+        """Effective ``T(Δ)`` at the observed hit rate — hand this back to
+        the tuner to re-tune the index for this cache deployment."""
+        backing = backing or self.profile
+        if backing is None:
+            raise ValueError("no backing profile: the service was opened "
+                             "with profile=None — pass one explicitly")
+        return CachedProfile(backing=backing, cache=self.cache_profile,
+                             hit_rate=self.stats.hit_rate)
+
+    def observed_profile(self, backing: StorageProfile | None = None, *,
+                         measured: bool = True,
+                         min_samples: int = MIN_FIT_SAMPLES,
+                         distributional: bool = False) -> CachedProfile:
+        """Effective ``T(Δ)`` from observed serving behavior: the hit rate
+        plus (``measured=True``) the measured per-pread latency in place of
+        the modeled backing tier.  With ``measured=False`` it equals
+        :meth:`cached_profile`."""
+        backing = backing or self.profile
+        if backing is None:
+            raise ValueError("no backing profile: the service was opened "
+                             "with profile=None — pass one explicitly")
+        return observed_profile_from_stats(self.stats, backing,
+                                           self.cache_profile,
+                                           measured=measured,
+                                           min_samples=min_samples,
+                                           distributional=distributional)
+
+    def save_stats(self, *, window: int = STATS_WINDOW) -> str:
+        """Persist the current :class:`ServeStats` snapshot next to the
+        index meta (``<path>.stats.json``, rotating window) → its path."""
+        prof = getattr(self.profile, "name", None)
+        return save_stats_snapshot(self.path, self.stats,
+                                   profile_name=prof, window=window)

@@ -154,5 +154,6 @@ def test_serve_spec_round_trip_and_validation():
         ServeSpec(cache_profile="hbm").validate()
     with pytest.raises(ValueError):
         ServeSpec(prefetch_layers=0).validate()
-    with pytest.raises(NotImplementedError, match="persisted stats"):
-        ServeSpec(persist_stats=True).validate()
+    # persisted stats are ported: the knob validates and round-trips
+    persisted = ServeSpec(persist_stats=True).validate()
+    assert ServeSpec.from_json(persisted.to_json()).persist_stats is True

@@ -83,9 +83,7 @@ def _serve(ref: bool, path, batches, *, device="cpu", factory=None, **kw):
 
 
 def _counters_common(port_stats, ref_stats) -> tuple:
-    port, ref = _counters(port_stats), _counters(ref_stats)
-    ref.pop("swaps")                  # hot swap is not ported
-    return port, ref
+    return _counters(port_stats), _counters(ref_stats)
 
 
 @pytest.mark.parametrize("resident", [1, 2, 3])
@@ -230,7 +228,6 @@ def test_serve_stats_reservoirs_and_snapshot_identical():
         assert port.lookup_quantile(p) == ref.lookup_quantile(p)
     assert port.roofline() == ref.roofline()
     snap, ref_snap = port.snapshot(), ref.snapshot()
-    ref_snap.pop("swaps")
     assert snap == ref_snap
     assert index_service.ServeStats.from_snapshot(snap) == port
     assert index_service.ServeStats.from_snapshot(ref.snapshot()) == port
@@ -249,7 +246,16 @@ def test_closed_service_and_empty_batches(index):
         svc.lookup(batches[0])
 
 
-def test_persist_stats_is_not_silently_ignored(index):
-    path, _, _, _ = index
-    with pytest.raises(NotImplementedError):
-        IndexService(path, spec=ServeSpec(persist_stats=True), device="cpu")
+def test_persist_stats_is_not_silently_ignored(index, tmp_path):
+    import os
+    import shutil
+    src, _, batches, _ = index
+    path = str(tmp_path / "idx.air")
+    shutil.copy(src, path)
+    with IndexService(path, spec=ServeSpec(persist_stats=True),
+                      device="cpu") as svc:
+        svc.lookup(batches[0])
+    hist = index_service.load_stats_history(path)
+    assert os.path.exists(index_service.stats_path(path)) and len(hist) == 1
+    assert hist[0]["stats"]["queries"] == len(batches[0])
+    assert hist == ref_is.load_stats_history(path)

@@ -23,7 +23,10 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels import fused_descent as fd
 from repro_torch.kernels.candidate_score import kernel as CK
 from repro_torch.kernels.fused_descent import kernel as K
+from repro_torch.kernels.index_lookup import kernel as IK
 from repro_torch.serve import IndexService, demo_serving_design
+
+LIBS = [K.LIB, CK.LIB, *IK.LIBS]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -61,7 +64,11 @@ def test_every_port_module_imports_with_jax_blocked():
     for name in ("repro_torch.serve.index_service", "repro_torch.core.sweep",
                  "repro_torch.core.airtune", "repro_torch.core.baselines",
                  "repro_torch.kernels.candidate_score.kernel",
-                 "repro_torch.kernels._cuda", "repro_torch.api.spec"):
+                 "repro_torch.kernels._cuda", "repro_torch.api.spec",
+                 "repro_torch.api.index", "repro_torch.api.drift",
+                 "repro_torch.core.lookup",
+                 "repro_torch.kernels.index_lookup.kernel",
+                 "repro_torch.kernels.index_lookup.ops"):
         assert name in names
     # each module is imported first, into a process that holds no other
     # module of the port, so an import cycle cannot hide behind the order
@@ -149,7 +156,7 @@ def test_entry_points_of_the_tuner_need_a_card_unless_told_otherwise(
             assert cpu.cost == pytest.approx(exact.cost, rel=1e-6)
 
 
-@pytest.mark.parametrize("lib", [K.LIB, CK.LIB], ids=lambda lib: lib.name)
+@pytest.mark.parametrize("lib", LIBS, ids=lambda lib: lib.name)
 def test_failed_build_raises(lib, tmp_path, monkeypatch):
     monkeypatch.setattr(lib, "_lib", None)
     monkeypatch.setattr(_cuda, "BUILD_ROOT", tmp_path / "build")
@@ -164,7 +171,7 @@ def test_failed_build_raises(lib, tmp_path, monkeypatch):
         _cuda.nvcc()
 
 
-@pytest.mark.parametrize("lib", [K.LIB, CK.LIB], ids=lambda lib: lib.name)
+@pytest.mark.parametrize("lib", LIBS, ids=lambda lib: lib.name)
 def test_build_is_keyed_by_the_source(lib, tmp_path, monkeypatch):
     first = lib.library_path()
     assert first.parent.parent == _cuda.BUILD_ROOT
@@ -176,8 +183,8 @@ def test_build_is_keyed_by_the_source(lib, tmp_path, monkeypatch):
     src.write_bytes(lib.source.read_bytes() + b"\n// edited\n")
     monkeypatch.setattr(lib, "source", src)
     assert lib.library_path() != first
-    # the two kernels never share a library
-    assert K.LIB.library_path() != CK.LIB.library_path()
+    # no two kernels share a library
+    assert len({x.library_path() for x in LIBS}) == len(LIBS)
 
 
 def _run_chip_smoke(cwd):
@@ -199,3 +206,30 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     out = _run_chip_smoke(str(tmp_path))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_facade_entry_points_need_a_card_unless_told_otherwise(small_index,
+                                                               monkeypatch):
+    from repro_torch.api import Index, TuneSpec
+    from repro_torch.kernels import index_lookup as il
+    path, keys = small_index
+    D = KeyPositions.fixed_record(keys, 16)
+    spec = TuneSpec(lam_low=2**10, lam_high=2**14, lam_base=4.0, k=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Index.tune(D, "azure_ssd", spec).build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Index.open(path).serve()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        il.device_arrays_from_design(demo_serving_design(D))
+    idx = Index.tune(D, "azure_ssd", spec, device="cpu").build()
+    assert idx.result.stats.est_batches >= 0
+    with Index.open(path, device="cpu").serve() as svc:
+        assert svc.device.type == "cpu" and svc.device_active
+    layers = il.device_arrays_from_design(demo_serving_design(D),
+                                          device="cpu")
+    before = [lib.launches() for lib in IK.LIBS]
+    lo, hi = il.traverse_index(layers, torch.from_numpy(
+        keys[:50].astype(np.int32)))
+    assert lo.shape == (50,) and [lib.launches() for lib in IK.LIBS] \
+        == before

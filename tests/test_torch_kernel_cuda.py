@@ -1,7 +1,9 @@
 """The hand-written kernels on the card, against their plain PyTorch
 versions on the same inputs (numpy seeds).  Fused descent: no tolerance —
 the kernel forbids FMA contraction, so it equals the plain version bit
-for bit.  Candidate scoring: rtol 1e-5 to the plain version (the float32
+for bit; the same holds for the step, band and segmented-step lookup
+kernels, and step rows also equal the float64 ``layer.predict``.
+Candidate scoring: rtol 1e-5 to the plain version (the float32
 sums are taken in another order) and 3e-5 to the float64 oracle (the JAX
 package's own tolerance for its device scorers).  Needs an NVIDIA card:
 run there with ``PYTHONPATH=src python -m pytest -m cuda
@@ -16,6 +18,8 @@ from repro_torch.kernels import candidate_score as cs
 from repro_torch.kernels import fused_descent as fd
 from repro_torch.kernels.candidate_score import kernel as CK
 from repro_torch.kernels.fused_descent import kernel as K
+from repro_torch.kernels import index_lookup as il
+from repro_torch.kernels.index_lookup import kernel as IK
 
 pytestmark = pytest.mark.cuda
 
@@ -124,3 +128,73 @@ def test_candidate_score_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         CK.affine_scores_cuda(W, wt.cpu(), 1.0, 1.0)
     assert CK.launches() == before
+
+
+def _layer(rng, P, band):
+    keys = np.concatenate([[1], np.sort(rng.choice(
+        np.arange(2, 2**31 - 2, 257), P - 1, replace=False))]).astype(
+        np.int32)
+    if band:
+        y1 = np.sort(rng.integers(0, 2**24, P)).astype(np.float32)
+        return (keys, keys.astype(np.float32), y1,
+                rng.uniform(0, 0.01, P).astype(np.float32),
+                rng.uniform(1, 600, P).astype(np.float32))
+    pos = np.sort(rng.integers(0, 2**30, P + 1)).astype(np.int32)
+    return keys, pos
+
+
+def _on(card, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("P", [1, 64, 127, 128, 1000, 4096, 4097, 20_000])
+@pytest.mark.parametrize("Q", [1, 255, 257, 4097])
+def test_step_lookup_kernels_equal_plain_version(card, P, Q):
+    rng = np.random.default_rng(P * 31 + Q)
+    keys, pos = _layer(rng, P, False)
+    q = rng.integers(1, 2**31 - 2, Q).astype(np.int32)
+    q[: min(Q, 3)] = keys[: min(Q, 3)]
+    qt, kt, pt = _on(card, q, keys, pos)
+    lib = IK.STEP if P <= il.MAX_VMEM_ENTRIES else IK.SEGMENTED
+    before = lib.launches()
+    lo, hi = il.lookup_step_layer(qt, kt, pt)
+    torch.cuda.synchronize()
+    assert lib.launches() == before + 1
+    plo, phi = il.lookup_step_layer(*(x.cpu() for x in (qt, kt, pt)))
+    assert torch.equal(lo.cpu(), plo) and torch.equal(hi.cpu(), phi)
+    i = np.maximum(np.searchsorted(keys, q, side="right") - 1, 0)
+    np.testing.assert_array_equal(lo.cpu().numpy(), pos[:-1][i])
+    np.testing.assert_array_equal(hi.cpu().numpy(), pos[1:][i])
+
+
+@pytest.mark.parametrize("P", [1, 10, 300, 4096])
+@pytest.mark.parametrize("Q", [1, 256, 4097])
+def test_band_lookup_kernel_equals_plain_version(card, P, Q):
+    rng = np.random.default_rng(P * 17 + Q)
+    arrays = _layer(rng, P, True)
+    q = rng.integers(1, 2**31 - 2, Q).astype(np.int32)
+    ts = _on(card, q, *arrays)
+    before = IK.BAND.launches()
+    lo, hi = il.lookup_band_layer(*ts)
+    torch.cuda.synchronize()
+    assert IK.BAND.launches() == before + 1
+    plo, phi = il.band_lookup_torch(*ts)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+
+
+def test_lookup_kernels_reject_what_they_do_not_take(card):
+    rng = np.random.default_rng(0)
+    keys, pos = _layer(rng, 64, False)
+    qt, kt, pt = _on(card, keys, keys, pos)
+    before = [lib.launches() for lib in IK.LIBS]
+    with pytest.raises(ValueError):
+        IK.step_lookup_cuda(qt.long(), kt, pt[:-1], pt[1:])
+    with pytest.raises(ValueError):
+        IK.step_lookup_cuda(qt, kt, pt[:-1].cpu(), pt[1:])
+    big = torch.arange(5000, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        IK.step_lookup_cuda(qt, big, big, big)
+    with pytest.raises(ValueError):
+        IK.segmented_step_lookup_cuda(qt, qt[:3], kt, pt[:-1], pt[1:])
+    assert [lib.launches() for lib in IK.LIBS] == before
