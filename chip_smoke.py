@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, tuning and in-memory lookup paths on
-one NVIDIA card.
+"""Drive the PyTorch port's serving, tuning, in-memory lookup and LLM
+serving paths on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--draws 230000000]
                           [--tune-draws 21000000]
 
-Phases (none catches its own failure; any failure exits non-zero):
+Phases (none catches its own failure; any failure exits non-zero), run in
+the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
 
 1. Card: name and power limit from ``nvidia-smi``.
-2. Build: compile all five kernels from ``src/repro_torch/csrc`` through
+2. Build: compile all seven kernels from ``src/repro_torch/csrc`` through
    the shared build helper, one ``nvcc`` per source, all started
    together; print each kernel's ptxas registers, shared memory and
    spills.
@@ -63,14 +64,41 @@ Phases (none catches its own failure; any failure exits non-zero):
    uniform stream of 256 batches x 4096 keys and one 2^20-key batch:
    every range must contain its record, step bottoms must equal the
    float64 ``lookup_batch``, band bottoms are compared with it.
-10. Numbers: sizes, build/generation times, per-stream qps, lookup wall,
+10. The attention kernels against their plain versions: decode at
+   (query, kv) heads 40/8, 32/2 and 8/8, D in 128/64, S in
+   1/127/128/4096/32768 with per-row lengths from 1..S and one row of
+   length 0, in bf16 and f32; flash attention over the JAX kernel tests'
+   cases, qwen3-14b's heads at Sq = Skv = 4096 and Sq < Skv, in bf16 and
+   f32.  Limits: f32 at the JAX tests' own (flash 2e-5; decode 3e-5 on
+   o, 1e-5 on m, l relative 1e-5), with TF32 off for the plain versions;
+   bf16 2e-2.
+11. The LLM serving path, after the index phases with the card's memory
+   freed: the ``hbm`` profile's ℓ and B measured (4 KiB copies queued
+   back to back, 2 GiB copies; CUDA events) and held within 2x of the
+   profile; qwen3-14b at
+   full width and depth in bf16, weights from ``init_params`` on the card;
+   ``make_prefill_step`` at B = 1 x 4096 and B = 4 x 2048 (twice each);
+   the port's ``launch.serve.run`` with 8 requests, batch 4, and the steps
+   every request needs; one 4 x 512 prompt through prefill and, token by
+   token, decode, whose last logits must agree within 5e-2 of max |logit|
+   (top-1 equal where prefill's top-2 margin is larger); a profiled
+   decode step and prefill (device busy share).  Exactly 40 flash
+   launches per prefill call and 40 decode launches per decode step, and
+   no plain attention runs; then the page table of the loop's requests
+   tuned for ``hbm`` on the card.
+12. Numbers: sizes, build/generation times, per-stream qps, lookup wall,
    descent seconds, roofline and hit rate; per tune its wall, sweep
    seconds, stats and the device ranking's copy/kernel/readback split;
    the loop's walls and drift report; ``traverse_index`` lookups/s and
    batch walls; each kernel's time per launch beside its plain version,
    its bound and, where one exists, a PyTorch yardstick; candidate
    scoring's and the lookup kernels' times in the kernels line are taken
-   with the L2 flushed before each call.
+   with the L2 flushed before each call; prefill tokens/s and wall,
+   decode tokens/s and step walls, and each attention kernel at the
+   path's shapes (and decode at B = 8, S = 32768) beside its plain
+   version, the ``scaled_dot_product_attention`` yardstick and its bound,
+   timed with CUDA events around calls queued behind a device sleep (a
+   CUPTI trace now and then loses device records).
 
 The second-to-last line is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -80,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -126,6 +155,48 @@ TUNE_BATCHES = 64
 SCORE_RTOL_PLAIN = 1e-5          # kernel vs plain float32 (sum order)
 SCORE_RTOL_REF = 3e-5            # kernel vs float64 oracle (the JAX
                                  # package's tolerance for its scorers)
+ATTN_KERNELS = {                 # name -> (source, the TPU kernel it replaces)
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:73"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:90"),
+}
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
+DECODE_PAIRS = ((40, 8), (32, 2), (8, 8))    # (query heads, kv heads)
+DECODE_D = (128, 64)
+DECODE_S = (1, 127, 128, 4096, 32768)
+DECODE_B = 4
+# tests/test_kernels.py's ATTN_CASES, qwen3-14b's heads at 4096, Sq < Skv
+FLASH_CASES = (
+    dict(B=2, Hq=4, Hkv=4, Sq=128, Skv=128, D=64),
+    dict(B=1, Hq=8, Hkv=2, Sq=128, Skv=128, D=64),
+    dict(B=2, Hq=4, Hkv=2, Sq=96, Skv=96, D=64),
+    dict(B=1, Hq=4, Hkv=4, Sq=128, Skv=128, D=64, window=32),
+    dict(B=1, Hq=4, Hkv=4, Sq=128, Skv=128, D=64, softcap=30.0),
+    dict(B=1, Hq=4, Hkv=2, Sq=64, Skv=192, D=64),
+    dict(B=1, Hq=4, Hkv=4, Sq=100, Skv=228, D=32, window=50),
+    dict(B=1, Hq=2, Hkv=1, Sq=128, Skv=128, D=128, window=64, softcap=50.0),
+    dict(B=1, Hq=40, Hkv=8, Sq=4096, Skv=4096, D=128),
+    dict(B=2, Hq=40, Hkv=8, Sq=1000, Skv=3000, D=128),
+)
+# kernel vs plain: float32 at the JAX kernel tests' own limits (flash 2e-5,
+# decode 3e-5 on o and 1e-5 on m; l relative), bfloat16 at 2e-2
+ATTN_TOL = {"float32": {"flash": 2e-5, "o": 3e-5, "m": 1e-5, "l": 1e-5},
+            "bfloat16": {"flash": 2e-2, "o": 2e-2, "m": 2e-2, "l": 2e-2}}
+LLM_ARCH = "qwen3-14b"
+PREFILLS = ((1, 4096), (4, 2048))          # (batch, prompt length)
+SERVE_REQUESTS = 8
+SERVE_BATCH = 4
+ECHO_BATCH, ECHO_LEN = 4, 512    # the prompt fed through prefill and decode
+# decode's last logits vs prefill's, over max |logit|: the two paths round
+# bf16 activations at other places (matmul shapes, attention order)
+ECHO_TOL = 5e-2
+SHARE_STEPS = 5                  # decode steps traced for the busy share
+HBM_SMALL = 4096                 # bytes of the latency copy
+HBM_LARGE = 2 << 30              # bytes of the bandwidth copy
+HBM_FACTOR = 2.0                 # measured vs the "hbm" profile, at most
+SLEEP_CYCLES = 100_000_000       # device sleep the timed calls queue behind
+QUEUED_CALLS = 20                # calls queued at once where a trace fails
 
 
 def log(msg: str) -> None:
@@ -350,7 +421,7 @@ def time_launches(fn, n: int, reps: int) -> float:
     return float(np.median(per))
 
 
-def trace_device_us(fn, n: int, before=None, attempts: int = 3) -> dict:
+def trace_device_us(fn, n: int, before=None, attempts: int = 6) -> dict:
     """Device time of ``n`` calls of ``fn`` (each after ``before()``, when
     given) from the profiler's CUPTI trace → microseconds per device row
     (kernel or copy) name, summed over the calls.  An operator's row
@@ -385,10 +456,13 @@ def trace_device_us(fn, n: int, before=None, attempts: int = 3) -> dict:
 
 def device_ms_per_call(fn, n: int) -> float:
     """Device time of every kernel ``fn`` launches, per call, over ``n``
-    back-to-back calls → milliseconds."""
+    back-to-back calls → milliseconds.  Where no trace holds a device row,
+    CUDA events around calls queued behind a sleep time them instead."""
     us = sum(trace_device_us(fn, n).values())
-    assert us > 0, "the profiler saw no device time"
-    return us / n / 1e3
+    if us > 0:
+        return us / n / 1e3
+    log("no trace held a device row: timed with queued CUDA events")
+    return queued_device_ms(fn, min(n, QUEUED_CALLS))
 
 
 def build_all() -> None:
@@ -397,8 +471,10 @@ def build_all() -> None:
     a build fails."""
     from repro_torch.kernels.candidate_score import kernel as CK
     from repro_torch.kernels.fused_descent import kernel as FK
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as AK
     from repro_torch.kernels.index_lookup import kernel as IK
-    libs = (FK.LIB, CK.LIB, *IK.LIBS)
+    libs = (FK.LIB, CK.LIB, *IK.LIBS, DK.LIB, AK.LIB)
 
     def timed_build(lib):
         t0 = time.perf_counter()
@@ -492,18 +568,26 @@ def cold_device_ms(fn, n: int) -> float:
     finds the 50 MB L2 cold: a 128 MiB buffer is rewritten before each
     call → milliseconds.  ``fn``'s own device rows are named from a trace
     of back-to-back calls, and only those rows of the cold trace count,
-    so the rewrite's kernels are left out."""
+    so the rewrite's kernels are left out; the rewrite negates the
+    buffer, an operation no timed function launches (a fill would share
+    its kernel's name with the plain versions' fills)."""
     import torch
-    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
     own = set(trace_device_us(fn, n))
-    rows = trace_device_us(fn, n, before=lambda: flush.fill_(1.0))
-    assert own and own <= set(rows), (sorted(own), sorted(rows))
-    assert set(rows) - own, "the profiler saw no device time of the rewrite"
-    return sum(rows[k] for k in own) / n / 1e3
+    rows = trace_device_us(fn, n, before=flush.neg_)
+    if own and own <= set(rows) and set(rows) - own:
+        return sum(rows[k] for k in own) / n / 1e3
+    # a trace lost its device records: queued CUDA events, the rewrite's
+    # own queued time taken off
+    log("a trace lost its device rows: timed with queued CUDA events")
+    m = min(n, QUEUED_CALLS)
+    return (queued_device_ms(fn, m, before=flush.neg_)
+            - queued_device_ms(flush.neg_, m))
 
 
-def roofline_bound(nbytes: int, ops: int) -> tuple:
-    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def roofline_bound(nbytes: int, ops: int,
+                   ops_per_s: float = F32_OPS_PER_S) -> tuple:
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(bytes_s, ops_s) * 1e3,
             "bytes" if bytes_s >= ops_s else "operations")
 
@@ -1267,6 +1351,477 @@ def alg1_phase(args, device, card, tuned: dict, gen1, errs: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+def check_attention_kernels(device, seed: int) -> dict:
+    """Every decode and flash case: kernel == plain version within
+    ATTN_TOL → the largest |kernel − plain| of the outputs per kernel."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    rng = np.random.default_rng(seed + 8)
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(dt)
+
+    errs = {"decode_attention": 0.0, "flash_attention": 0.0}
+    n_dec = 0
+    for Hq, Hkv in DECODE_PAIRS:
+        for D in DECODE_D:
+            for S in DECODE_S:
+                for dt in (torch.bfloat16, torch.float32):
+                    R, G = DECODE_B * Hkv, Hq // Hkv
+                    q, k, v = (randn((R, G, D), dt), randn((R, S, D), dt),
+                               randn((R, S, D), dt))
+                    lens = rng.integers(1, S + 1, DECODE_B)
+                    lens[0] = 0                 # one batch row of length 0
+                    lt = torch.from_numpy(np.repeat(lens, Hkv).astype(
+                        np.int32)).to(device)
+                    o, m, l = decode_attention_cuda(q, k, v, lt)
+                    po, pm, pl = decode_attention_ref(q, k, v, lt)
+                    torch.cuda.synchronize()
+                    tol = ATTN_TOL[str(dt).split(".")[-1]]
+                    eo = float((o - po).abs().max())
+                    em = float((m - pm).abs().max())
+                    el = float(((l - pl).abs() / pl.clamp_min(1.0)).max())
+                    errs["decode_attention"] = max(errs["decode_attention"],
+                                                   eo)
+                    n_dec += 1
+                    if not (eo <= tol["o"] and em <= tol["m"]
+                            and el <= tol["l"]):
+                        raise AssertionError(
+                            f"decode_attention Hq={Hq} Hkv={Hkv} D={D} S={S} "
+                            f"{dt}: |o| err {eo:.3e}, |m| err {em:.3e}, l rel "
+                            f"err {el:.3e} (limits {tol})")
+                    del q, k, v, po, pm, pl
+    n_fl = 0
+    for case in FLASH_CASES:
+        c = dict(case)
+        B, Hq, Hkv, Sq, Skv, D = (c.pop(x) for x in ("B", "Hq", "Hkv", "Sq",
+                                                     "Skv", "D"))
+        for dt in (torch.bfloat16, torch.float32):
+            q = randn((B, Hq, Sq, D), dt)
+            k, v = randn((B, Hkv, Skv, D), dt), randn((B, Hkv, Skv, D), dt)
+            o = flash_attention_cuda(q, k, v, causal=True, **c)
+            want = attention_ref(q, k, v, causal=True, **c)
+            torch.cuda.synchronize()
+            err = float((o.float() - want).abs().max())
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            n_fl += 1
+            lim = ATTN_TOL[str(dt).split(".")[-1]]["flash"]
+            if not err <= lim:
+                raise AssertionError(f"flash_attention {case} {dt}: max abs "
+                                     f"err {err:.3e} (limit {lim})")
+            del q, k, v, o, want
+    log(f"attention check: {n_dec} decode cases, max |o| err "
+        f"{errs['decode_attention']:.3e}; {n_fl} flash cases, max abs err "
+        f"{errs['flash_attention']:.3e}; float32 within "
+        f"{ATTN_TOL['float32']}, bfloat16 within {ATTN_TOL['bfloat16']} "
+        f"(TF32 off for the float32 plain versions)")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the LLM serving path at qwen3-14b's full width and depth
+# ---------------------------------------------------------------------------
+def queued_device_ms(fn, n: int, before=None) -> float:
+    """Device time per call of ``n`` calls of ``fn`` (each after
+    ``before()``, when given) from a CUDA-event pair around them, the
+    calls queued behind a device sleep so the card reaches them only
+    after the host has enqueued every one: no host gap is timed, and no
+    profiler trace is needed → milliseconds.  The sleep doubles until the
+    host's enqueue fits inside it."""
+    import torch
+    for _ in range(3):
+        if before is not None:
+            before()
+        fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(6):
+        s0, s1, e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(4))
+        t0 = time.perf_counter()
+        s0.record()
+        torch.cuda._sleep(cycles)
+        s1.record()
+        e0.record()
+        for _ in range(n):
+            if before is not None:
+                before()
+            fn()
+        e1.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < s0.elapsed_time(s1):
+            return e0.elapsed_time(e1) / n
+        cycles *= 2
+    raise AssertionError(f"the host's enqueue of {n} calls outran a "
+                         f"{cycles // 2}-cycle sleep")
+
+
+def measure_hbm(device) -> tuple:
+    """(ℓ, B) of the card's memory: ℓ the device time of one 4 KiB
+    device-to-device copy (200 copies queued back to back: a CUDA-event
+    pair around one copy alone would time the host's enqueue), B the
+    bytes per second of a 2 GiB copy (CUDA events around back-to-back
+    copies)."""
+    import torch
+    src = torch.ones(HBM_SMALL, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    ell = queued_device_ms(lambda: dst.copy_(src), 200) / 1e3
+    src = torch.ones(HBM_LARGE, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    bw = HBM_LARGE / (time_launches(lambda: dst.copy_(src), 5, 5) / 1e3)
+    del src, dst
+    return ell, bw
+
+
+def device_share(fn, n: int) -> tuple:
+    """Wall per call of ``n`` synchronised calls of ``fn`` under the
+    profiler, the share of it the card was busy (device rows summed) and
+    the device rows by time → (wall s, busy share, [(name, us per call)])."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):        # a trace may come back with no device row
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n
+        rows = sorted(((e.key, e.self_device_time_total / n)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        if rows:
+            break
+    busy = sum(us for _, us in rows) / 1e6 / wall if rows else None
+    return wall, busy, rows
+
+
+def log_share(what: str, share: tuple) -> None:
+    wall, busy, rows = share
+    if busy is None:
+        log(f"{what}: wall {wall * 1e3:.3f} ms per call under the profiler;"
+            f" device busy share not measured (no trace held a device row)")
+        return
+    top = "; ".join(f"{name[:60]} {us:.1f} us" for name, us in rows[:8])
+    log(f"{what}: wall {wall * 1e3:.3f} ms per call under the profiler, "
+        f"device busy {busy:.4f} of it (idle {1 - busy:.4f}); top device "
+        f"rows per call: {top}")
+
+
+def steps_to_finish(lengths, batch: int, out_tokens: int) -> int:
+    """Decode steps the serving loop needs until every request is done:
+    a request holds its slot for its prompt plus ``out_tokens`` steps, and
+    a freed slot takes the next request on the following step."""
+    slots, nxt, done, step = [0] * batch, 0, 0, 0
+    while done < len(lengths):
+        for b in range(batch):
+            if slots[b] == 0 and nxt < len(lengths):
+                slots[b] = int(lengths[nxt]) + out_tokens
+                nxt += 1
+        step += 1
+        for b in range(batch):
+            if slots[b]:
+                slots[b] -= 1
+                done += slots[b] == 0
+    return step
+
+
+def attention_numbers(name: str, kern, plain, library, nbytes: int,
+                      ops: int, n: int, card: str, shape: str) -> dict:
+    """One attention kernel's device times at a shape, from queued CUDA
+    events (no profiler trace): L2-cold (a 128 MiB rewrite before each
+    call, whose own queued time is taken off) and back to back, beside its
+    plain version, the SDPA yardstick and its bound → the kernels-line
+    numbers."""
+    import torch
+    flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+    rewrite = queued_device_ms(flush.neg_, n)
+    fns = {"ms": kern, "plain_ms": plain, "library_ms": library}
+    cold = {k: queued_device_ms(f, n, before=flush.neg_) - rewrite
+            for k, f in fns.items()}
+    warm = {k: queued_device_ms(f, n) for k, f in fns.items()}
+    bound_ms, bound_by = roofline_bound(nbytes, ops, BF16_OPS_PER_S)
+    log(f"{name} at {shape} on {card}: device time per call with the L2 "
+        f"flushed {cold['ms'] * 1e3:.3f} us (plain torch "
+        f"{cold['plain_ms'] * 1e3:.3f} us; SDPA {cold['library_ms'] * 1e3:.3f}"
+        f" us), back to back {warm['ms'] * 1e3:.3f} us (plain "
+        f"{warm['plain_ms'] * 1e3:.3f} us; SDPA "
+        f"{warm['library_ms'] * 1e3:.3f} us); bound {bound_ms * 1e3:.3f} us "
+        f"by {bound_by} ({nbytes} B, {ops} ops at the bf16 rate)")
+    return {**cold, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def decode_numbers(B: int, S: int, lens, cfg, card: str, device,
+                   gen) -> dict:
+    """The decode kernel on a (B, S) bf16 cache at qwen3-14b's heads, the
+    rows live up to ``lens``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_ref)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G, R = Hq // Hkv, B * Hkv
+    bf = torch.bfloat16
+    q = torch.randn((B, Hq, D), generator=gen, device=device).to(bf)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device=device).to(bf)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device=device).to(bf)
+    lens = np.asarray(lens, dtype=np.int32)
+    qg, kg, vg = q.reshape(R, G, D), k.reshape(R, S, D), v.reshape(R, S, D)
+    lg = torch.from_numpy(np.repeat(lens, Hkv)).to(device)
+    mask = (torch.arange(S, device=device)[None, :]
+            < torch.from_numpy(lens).to(device)[:, None])[:, None, None, :]
+    live = int(lens.sum()) * Hkv                # (row, key) pairs read
+    nbytes = 2 * live * D * 2 + R * G * D * 2 + R * G * (D + 2) * 4
+    ops = 4 * G * D * live
+    return attention_numbers(
+        "decode_attention", lambda: decode_attention_cuda(qg, kg, vg, lg),
+        lambda: decode_attention_ref(qg, kg, vg, lg),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
+        nbytes, ops, 50, card,
+        f"B={B}, S={S} (lengths {int(lens.min())}..{int(lens.max())}), "
+        f"Hq={Hq}, Hkv={Hkv}, D={D}, bf16")
+
+
+def flash_numbers(B: int, S: int, cfg, card: str, device, gen) -> dict:
+    """The flash kernel on a causal (B, S) bf16 prefill at qwen3-14b's
+    heads, q in the model's (B, S, H, D) layout."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bf = torch.bfloat16
+    q = torch.randn((B, S, Hq, D), generator=gen, device=device).to(bf) \
+        .transpose(1, 2)
+    k = torch.randn((B, S, Hkv, D), generator=gen, device=device).to(bf) \
+        .transpose(1, 2)
+    v = torch.randn((B, S, Hkv, D), generator=gen, device=device).to(bf) \
+        .transpose(1, 2)
+    pairs = B * Hq * S * (S + 1) // 2           # live (query, key) pairs
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    ops = 4 * D * pairs
+    return attention_numbers(
+        "flash_attention", lambda: flash_attention_cuda(q, k, v),
+        lambda: attention_ref(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        nbytes, ops, 10, card, f"B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, "
+        f"bf16, causal")
+
+
+def llm_phase(args, device, card: str, errs: dict) -> list:
+    """Phase 11: qwen3-14b at full width and depth in bf16 on the card:
+    prefill through ``make_prefill_step``, the port's serving loop, the
+    same prompt through decode against prefill, the page table on the
+    ``hbm`` profile, then each attention kernel's numbers → the two
+    kernels-line entries."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PROFILES
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.flash_attention import kernel as AK
+    from repro_torch.kernels.flash_attention import ops as AO
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import api
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve.kvcache import PagedKVCache
+
+    ell, bw = measure_hbm(device)
+    hbm = PROFILES["hbm"]
+    log(f"hbm on {card}: measured latency {ell * 1e6:.3f} us (per 4 KiB "
+        f"copy, queued), bandwidth {bw:.6e} B/s (2 GiB copies); profile "
+        f"constants {hbm.latency * 1e6:.3f} us, {hbm.bandwidth:.6e} B/s")
+
+    cfg = get_config(LLM_ARCH)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, args.seed, device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff},"
+        f" vocab {cfg.vocab}; {n_params} parameters in {cfg.dtype} "
+        f"({n_params * 2} B) drawn on the card in {t_init:.1f} s (seed "
+        f"{args.seed}); param_count {cfg.param_count()}")
+    rng = np.random.default_rng(args.seed + 9)
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    L = cfg.n_layers
+
+    def forbid(what):
+        def plain_on_card(*a, **kw):
+            raise AssertionError(f"the plain {what} ran on the LLM path")
+        return plain_on_card
+
+    saved = (AO.ref.attention_ref, DO.ref.decode_attention_ref)
+    AO.ref.attention_ref = forbid("flash attention")
+    DO.ref.decode_attention_ref = forbid("decode attention")
+    AK.reset_launches()
+    DK.reset_launches()                 # the LLM path starts here
+    try:
+        prefill_calls, decode_steps = 0, 0
+        for B, S in PREFILLS:
+            toks = torch.from_numpy(rng.integers(
+                1, cfg.vocab, (B, S)).astype(np.int32)).to(device)
+            walls = []
+            for _ in range(2):          # the first call warms the library
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = prefill(params, {"tokens": toks})
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                prefill_calls += 1
+            lf = logits.float()
+            assert logits.shape == (B, cfg.padded_vocab), logits.shape
+            assert bool(torch.isfinite(lf[:, :cfg.vocab]).all())
+            assert bool((lf[:, cfg.vocab:] == lf.new_tensor(-1e30)
+                         .to(logits.dtype).float()).all())
+            log(f"prefill B={B} S={S}: wall {walls[1]:.4f} s (first call "
+                f"{walls[0]:.4f} s), {B * S / walls[1]:.1f} tokens/s; "
+                f"last logits finite, the {cfg.padded_vocab - cfg.vocab} "
+                f"padded columns -1e30")
+
+        queue = launcher.make_queue(cfg, SERVE_REQUESTS, args.seed)
+        steps = steps_to_finish([len(p) for p in queue], SERVE_BATCH,
+                                launcher.OUT_TOKENS)
+        res = launcher.run(cfg, params, requests=SERVE_REQUESTS, steps=steps,
+                           batch=SERVE_BATCH, max_len=steps, device=device,
+                           seed=args.seed)
+        decode_steps += steps
+        st = res.stats
+        walls = np.asarray(st["step_walls_s"])
+        assert st["completed"] == SERVE_REQUESTS, st
+        assert sorted(res.tokens) == list(range(SERVE_REQUESTS))
+        assert all(len(t) == launcher.OUT_TOKENS
+                   and all(0 <= x < cfg.vocab for x in t)
+                   for t in res.tokens.values()), res.tokens
+        p95 = float(np.percentile(walls, 95))
+        log(f"serving loop: {SERVE_REQUESTS} requests, batch {SERVE_BATCH}, "
+            f"{steps} steps (max_len {steps}), {st['out_tokens']} output "
+            f"tokens in {st['wall_s']:.4f} s: {st['tokens_per_s']:.3f} "
+            f"output tokens/s, {SERVE_BATCH * steps / st['wall_s']:.3f} "
+            f"decoded tokens/s (every slot); step wall mean "
+            f"{walls.mean() * 1e3:.3f} ms, median "
+            f"{np.median(walls) * 1e3:.3f} ms, p95 {p95 * 1e3:.3f} ms")
+        log(f"serving loop tokens: {json.dumps(res.tokens)}")
+
+        # the same prompt through prefill and, token by token, decode
+        toks = torch.from_numpy(rng.integers(
+            1, cfg.vocab, (ECHO_BATCH, ECHO_LEN)).astype(np.int32)).to(device)
+        want = prefill(params, {"tokens": toks}).float()[:, :cfg.vocab]
+        prefill_calls += 1
+        state = api.init_decode_state(cfg, params, ECHO_BATCH,
+                                      ECHO_LEN + SHARE_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(ECHO_LEN):
+            got, state = decode(params, {"tokens": toks[:, t:t + 1]}, state,
+                                t)
+        torch.cuda.synchronize()
+        t_echo = time.perf_counter() - t0
+        decode_steps += ECHO_LEN
+
+        # where a decode step's and a prefill's time goes
+        nxt = iter(range(ECHO_LEN, ECHO_LEN + SHARE_STEPS))
+        one = toks[:, -1:]
+        dec_share = device_share(lambda: decode(params, {"tokens": one},
+                                                state, next(nxt)),
+                                 SHARE_STEPS)
+        decode_steps += SHARE_STEPS
+        B, S = PREFILLS[0]
+        ptoks = toks.new_tensor(rng.integers(1, cfg.vocab, (B, S)))
+        pre_share = device_share(lambda: prefill(params, {"tokens": ptoks}),
+                                 1)
+        prefill_calls += 1
+        del state
+    finally:
+        AO.ref.attention_ref, DO.ref.decode_attention_ref = saved
+    launches = {"flash_attention": AK.launches(),
+                "decode_attention": DK.launches()}    # ... and ends here
+    expect = {"flash_attention": L * prefill_calls,
+              "decode_attention": L * decode_steps}
+    if launches != expect:
+        raise AssertionError(f"LLM path launches {launches}, expected "
+                             f"{expect}")
+    got = got.float()[:, :cfg.vocab]
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) / scale > ECHO_TOL
+    same = got.argmax(-1) == want.argmax(-1)
+    log(f"decode vs prefill on one {ECHO_BATCH} x {ECHO_LEN} prompt: max "
+        f"|logit| err {err:.4e} of max |logit| {scale:.4f} (limit "
+        f"{ECHO_TOL}); top-1 equal on {int(same.sum())} of {ECHO_BATCH} rows "
+        f"({int(sure.sum())} with a top-2 margin above the limit); "
+        f"{ECHO_LEN} decode steps in {t_echo:.3f} s "
+        f"({ECHO_BATCH * ECHO_LEN / t_echo:.3f} decoded tokens/s)")
+    if not (err <= ECHO_TOL and bool(same[sure].all())
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError("decode's last logits disagree with prefill's")
+    log_share(f"decode step (B={ECHO_BATCH}, cache {ECHO_LEN})", dec_share)
+    log_share(f"prefill (B={PREFILLS[0][0]}, S={PREFILLS[0][1]})",
+              pre_share)
+    log(f"LLM path: {prefill_calls} prefill calls, {decode_steps} decode "
+        f"steps, launches {launches} (exact: {L} per prefill call and per "
+        f"decode step); no plain attention ran")
+
+    # the page table the loop's requests held, tuned for the card's memory
+    pool = PagedKVCache(n_pages=launcher.N_PAGES)
+    for i, p in enumerate(queue):
+        pool.add_sequence(i)
+        pool.append_tokens(i, len(p) + launcher.OUT_TOKENS)
+    cost = pool.modeled_lookup_cost("hbm", device=device)
+    log(f"page table of {SERVE_REQUESTS} requests tuned for hbm: "
+        f"{json.dumps(cost)}")
+    if not (hbm.latency / HBM_FACTOR <= ell <= hbm.latency * HBM_FACTOR
+            and hbm.bandwidth / HBM_FACTOR <= bw
+            <= hbm.bandwidth * HBM_FACTOR):
+        raise AssertionError(f"the hbm profile ({hbm.latency:.3e} s, "
+                             f"{hbm.bandwidth:.3e} B/s) is more than "
+                             f"{HBM_FACTOR}x off the card's ({ell:.3e} s, "
+                             f"{bw:.3e} B/s)")
+
+    # -- each kernel at the path's shapes --------------------------------------
+    del params, want, got
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(args.seed + 10)
+    dec = decode_numbers(SERVE_BATCH, steps, [steps] * SERVE_BATCH, cfg,
+                         card, device, gen)     # the loop's last step
+    decode_numbers(ECHO_BATCH, ECHO_LEN, [ECHO_LEN] * ECHO_BATCH, cfg, card,
+                   device, gen)
+    decode_numbers(8, 32768, [32768] * 8, cfg, card, device, gen)
+    fl = flash_numbers(*PREFILLS[0], cfg, card, device, gen)
+    flash_numbers(*PREFILLS[1], cfg, card, device, gen)
+    entries = []
+    for name, t in (("decode_attention", dec), ("flash_attention", fl)):
+        source, replaces = ATTN_KERNELS[name]
+        entries.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": errs[name], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1292,13 +1847,18 @@ def main(argv=None) -> int:
     fd_err = check_kernel(device, args.seed)              # phase 3
     cs_err = check_scores(device, args.seed)              # phase 4
     il_err = check_lookup_kernels(device, args.seed)      # phase 5
+    attn_err = check_attention_kernels(device, args.seed)  # phase 10
     fused = serve_phase(args, device, card, fd_err)       # phase 6
     scores, tuned = tune_phase(args, device, card, cs_err)  # phase 7
     gen1 = loop_phase(args, tuned)                        # phase 8
     lookups = alg1_phase(args, device, card, tuned, gen1, il_err)  # phase 9
+    del tuned, gen1                     # the card's memory, freed first
+    gc.collect()
+    torch.cuda.empty_cache()
+    attention = llm_phase(args, device, card, attn_err)   # phase 11
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [fused, scores, *lookups]}))
+    print(json.dumps({"kernels": [fused, scores, *lookups, *attention]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,9 +17,10 @@ notes that the optimization works with *any* monotonically increasing
     ``E[T] + w·Q_p[T]`` objective into an additive ``C(Δ)``,
   * :class:`CachedProfile`        — ``T(Δ)`` seen through a block cache.
 
-``PROFILES`` holds the paper's tiers and host DRAM (the block cache's hit
-cost).  Tiers of a particular accelerator system are not carried: their
-constants must be measured on the machine that serves.  Host-side numpy,
+``PROFILES`` holds the paper's tiers, host DRAM (the block cache's hit
+cost) and ``hbm``, the H100's device memory as measured there (the JAX
+package's TPU tiers are not carried: their constants belong to another
+machine).  Host-side numpy,
 bit-identical to the JAX package's.
 """
 from __future__ import annotations
@@ -515,6 +516,9 @@ def profile_from_dict(d: dict | None) -> StorageProfile | None:
     return None
 
 
+HBM_LATENCY_S = 2.048e-6
+HBM_BYTES_PER_S = 1.492874e12
+
 PROFILES = {
     # paper §2.1 worked example
     "ssd_ex":    AffineProfile(100e-6, 1e9,    name="ssd_ex"),     # 100 µs, 1 GB/s
@@ -525,4 +529,10 @@ PROFILES = {
     "azure_hdd": AffineProfile(2e-3,   60e6,   name="azure_hdd"),  # 500 IOPS, 60 MB/s
     # host DRAM: the block cache's hit cost
     "host_dram": _DEFAULT_CACHE,
+    # the card's memory, for page tables kept on the device (the JAX
+    # package's "hbm" is a TPU figure): ℓ is the device time per 4 KiB
+    # device-to-device copy of 200 queued back to back, B the bytes copied
+    # per second by 2 GiB copies, both from CUDA events in chip_smoke.py's
+    # measure_hbm on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+    "hbm": AffineProfile(HBM_LATENCY_S, HBM_BYTES_PER_S, name="hbm"),
 }

@@ -1,0 +1,206 @@
+"""The port's attention plain versions against the JAX package's kernels,
+run as the JAX package's own tests run them on the CPU (Pallas in
+interpret mode), and against its jnp oracles, on the same numpy-seeded
+inputs.
+
+Tolerances: float32 at the JAX kernel tests' own limits (flash 2e-5;
+decode 3e-5 on o and 1e-5 on m, the normalizer l relative 1e-5) — the
+sums run in another order; bfloat16 flash at 2e-2, the JAX test's limit
+for a bf16 output.  The kernels themselves are held against these plain
+versions on the card (``test_torch_kernel_cuda.py``, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import kernel as jdk
+from repro.kernels.decode_attention import ops as jdo
+from repro.kernels.decode_attention import ref as jdr
+from repro.kernels.flash_attention import ops as jfo
+from repro.kernels.flash_attention import ref as jfr
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.decode_attention import kernel as DK
+from repro_torch.kernels.flash_attention import kernel as AK
+
+F32 = {"o": 3e-5, "m": 1e-5, "l": 1e-5}
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+
+
+def _close(port, ref, tol=F32):
+    o, m, l = (np.asarray(x, np.float32) for x in ref)
+    po, pm, pl = (x.numpy() for x in port)
+    assert np.abs(po - o).max() < tol["o"]
+    assert np.abs(pm - m).max() < tol["m"]
+    assert (np.abs(pl - l) / np.maximum(l, 1.0)).max() < tol["l"]
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,partial", [
+    (2, 4, 4, 256, 64, False), (2, 8, 2, 256, 64, False),
+    (3, 8, 4, 192, 32, True), (1, 16, 8, 128, 128, True),
+])
+def test_decode_plain_matches_pallas_and_ref(B, Hq, Hkv, S, D, partial):
+    rng = np.random.default_rng(B * 1000 + Hq * 10 + D)
+    q = rng.normal(size=(B, Hq, D))
+    k = rng.normal(size=(B, Hkv, S, D))
+    v = rng.normal(size=(B, Hkv, S, D))
+    L = rng.integers(1, S + 1, B).astype(np.int32) if partial else None
+    jL = None if L is None else jnp.asarray(L)
+    pallas = jdo.decode_attention(jnp.asarray(q, jnp.float32),
+                                  jnp.asarray(k, jnp.float32),
+                                  jnp.asarray(v, jnp.float32), jL,
+                                  block_k=64)
+    oracle = jdr.decode_attention_ref(jnp.asarray(q, jnp.float32),
+                                      jnp.asarray(k, jnp.float32),
+                                      jnp.asarray(v, jnp.float32), jL)
+    port = da.decode_attention(_t(q), _t(k), _t(v),
+                               None if L is None else torch.from_numpy(L))
+    assert all(x.dtype == torch.float32 for x in port)
+    assert port[0].shape == (B, Hq, D) and port[1].shape == (B, Hq)
+    _close(port, pallas)
+    _close(port, oracle)
+
+
+def test_decode_length_zero_row_follows_the_tpu_kernel():
+    """A row of length 0: the Pallas kernel skips every block (o = 0,
+    m = −1e30, l = 0) and so does the port; the JAX oracle masks every
+    score instead (l = S, o = mean(v)).  Either row weighs 0 when shards
+    are combined."""
+    B, Hq, Hkv, S, D = 3, 8, 2, 128, 64
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=s) for s in ((B, Hq, D), (B, Hkv, S, D),
+                                             (B, Hkv, S, D)))
+    L = np.asarray([0, 77, 128], np.int32)
+    jq, jk, jv = (jnp.asarray(x, jnp.float32) for x in (q, k, v))
+    pallas = jdo.decode_attention(jq, jk, jv, jnp.asarray(L), block_k=64)
+    oracle = jdr.decode_attention_ref(jq, jk, jv, jnp.asarray(L))
+    port = da.decode_attention(_t(q), _t(k), _t(v), torch.from_numpy(L))
+    _close(port, pallas)
+    o, m, l = (x.numpy() for x in port)
+    assert np.all(o[0] == 0) and np.all(m[0] == np.float32(-1e30)) \
+        and np.all(l[0] == 0)
+    # the oracle's row 0 differs exactly there, and only there
+    ro, rm, rl = (np.asarray(x) for x in oracle)
+    np.testing.assert_allclose(rl[0], S)
+    np.testing.assert_allclose(
+        ro[0], np.repeat(v[0].mean(axis=1), Hq // Hkv, axis=0), atol=3e-5)
+    _close(tuple(x[1:] for x in port), tuple(x[1:] for x in oracle))
+
+
+def test_decode_folded_plain_matches_the_pallas_kernel_directly():
+    """The folded layout the hand-written kernel takes, against
+    ``decode_attention_pallas`` (interpret) on the same rows."""
+    R, G, S, D = 6, 5, 256, 128
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.normal(size=s) for s in ((R, G, D), (R, S, D),
+                                             (R, S, D)))
+    L = np.asarray([1, 0, 64, 65, 200, 256], np.int32)
+    pallas = jdk.decode_attention_pallas(
+        jnp.asarray(q, jnp.float32), jnp.asarray(k[:, None], jnp.float32),
+        jnp.asarray(v[:, None], jnp.float32), jnp.asarray(L), block_k=64,
+        interpret=True)
+    port = da.decode_attention_folded(_t(q), _t(k), _t(v),
+                                      torch.from_numpy(L))
+    _close(port, pallas)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_combine_partials_over_four_shards_equals_full(kv_dtype):
+    B, Hq, Hkv, S, D = 2, 8, 2, 256, 64
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.normal(size=s) for s in ((B, Hq, D), (B, Hkv, S, D),
+                                             (B, Hkv, S, D)))
+    tq, tk, tv = _t(q), _t(k, kv_dtype), _t(v, kv_dtype)
+    full = da.decode_attention(tq, tk, tv)
+    parts = [da.decode_attention(tq, tk[:, :, i * 64:(i + 1) * 64],
+                                 tv[:, :, i * 64:(i + 1) * 64])
+             for i in range(4)]
+    O, M, L = da.combine_partials(*(torch.stack([p[j] for p in parts])
+                                    for j in range(3)))
+    _close((O, M, L), full)
+    # the JAX package's combination of the same partials
+    jO, jM, jL = jdo.combine_partials(*(jnp.asarray(torch.stack(
+        [p[j] for p in parts]).numpy()) for j in range(3)))
+    _close((O, M, L), (jO, jM, jL))
+    if kv_dtype == torch.float32:
+        oracle = jdr.decode_attention_ref(*(jnp.asarray(x, jnp.float32)
+                                            for x in (q, k, v)))
+        _close((O, M, L), oracle)
+
+
+def test_decode_wrapper_refuses_cpu_tensors_and_counts_nothing():
+    q, k = torch.zeros(2, 4, 64), torch.zeros(2, 128, 64)
+    lens = torch.full((2,), 128, dtype=torch.int32)
+    before = DK.launches()
+    da.decode_attention_folded(q, k, k, lens)      # the plain version
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        DK.decode_attention_cuda(q, k, k, lens)
+    with pytest.raises(ValueError):
+        da.decode_attention_folded(q.to("meta"), k.to("meta"),
+                                   k.to("meta"), lens.to("meta"))
+    assert DK.launches() == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+ATTN_CASES = [          # tests/test_kernels.py's
+    dict(B=2, Hq=4, Hkv=4, Sq=128, Skv=128, D=64),
+    dict(B=1, Hq=8, Hkv=2, Sq=128, Skv=128, D=64),
+    dict(B=2, Hq=4, Hkv=2, Sq=96, Skv=96, D=64),
+    dict(B=1, Hq=4, Hkv=4, Sq=128, Skv=128, D=64, window=32),
+    dict(B=1, Hq=4, Hkv=4, Sq=128, Skv=128, D=64, softcap=30.0),
+    dict(B=1, Hq=4, Hkv=2, Sq=64, Skv=192, D=64),
+    dict(B=1, Hq=4, Hkv=4, Sq=100, Skv=228, D=32, window=50),
+    dict(B=1, Hq=2, Hkv=1, Sq=128, Skv=128, D=128, window=64, softcap=50.0),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_and_ref(case, dtype):
+    c = dict(case)
+    B, Hq, Hkv, Sq, Skv, D = (c.pop(k) for k in ("B", "Hq", "Hkv", "Sq",
+                                                 "Skv", "D"))
+    rng = np.random.default_rng(Sq * 7 + Skv + D)
+    q = rng.normal(size=(B, Hq, Sq, D)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, Skv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, Skv, D)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    pallas = np.asarray(jfo.flash_attention(jq, jk, jv, block_q=64,
+                                            block_k=64, **c), np.float32)
+    oracle = np.asarray(jfr.attention_ref(jq, jk, jv, **c))
+    port = fa.flash_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt), **c)
+    assert port.dtype == tdt and port.shape == (B, Hq, Sq, D)
+    port = port.float().numpy()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert np.abs(port - pallas).max() < tol
+    assert np.abs(port - oracle).max() < tol
+
+
+def test_flash_writes_through_strides_and_refuses_more_queries_than_keys():
+    rng = np.random.default_rng(3)
+    B, S, Hq, Hkv, D = 2, 40, 4, 2, 32
+    q = _t(rng.normal(size=(B, S, Hq, D))).transpose(1, 2)
+    k = _t(rng.normal(size=(B, S, Hkv, D))).transpose(1, 2)
+    v = _t(rng.normal(size=(B, S, Hkv, D))).transpose(1, 2)
+    out = torch.empty(B, S, Hq, D)
+    got = fa.flash_attention(q, k, v, out=out.transpose(1, 2))
+    want = fa.attention_ref(q, k, v)
+    assert torch.equal(out.transpose(1, 2), got) and torch.equal(got, want)
+    with pytest.raises(ValueError, match="Sq <= Skv"):
+        fa.flash_attention(k.repeat(1, 1, 2, 1), k, v)
+    before = AK.launches()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        AK.flash_attention_cuda(q, k, v)
+    assert AK.launches() == before

@@ -23,10 +23,12 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels import fused_descent as fd
 from repro_torch.kernels.candidate_score import kernel as CK
 from repro_torch.kernels.fused_descent import kernel as K
+from repro_torch.kernels.decode_attention import kernel as DK
+from repro_torch.kernels.flash_attention import kernel as AK
 from repro_torch.kernels.index_lookup import kernel as IK
 from repro_torch.serve import IndexService, demo_serving_design
 
-LIBS = [K.LIB, CK.LIB, *IK.LIBS]
+LIBS = [K.LIB, CK.LIB, *IK.LIBS, DK.LIB, AK.LIB]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -68,7 +70,13 @@ def test_every_port_module_imports_with_jax_blocked():
                  "repro_torch.api.index", "repro_torch.api.drift",
                  "repro_torch.core.lookup",
                  "repro_torch.kernels.index_lookup.kernel",
-                 "repro_torch.kernels.index_lookup.ops"):
+                 "repro_torch.kernels.index_lookup.ops",
+                 "repro_torch.kernels.decode_attention.kernel",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.models.transformer", "repro_torch.models.api",
+                 "repro_torch.models.convert", "repro_torch.configs.qwen3_14b",
+                 "repro_torch.serve.serve_step", "repro_torch.serve.kvcache",
+                 "repro_torch.launch.serve"):
         assert name in names
     # each module is imported first, into a process that holds no other
     # module of the port, so an import cycle cannot hide behind the order
@@ -233,3 +241,24 @@ def test_facade_entry_points_need_a_card_unless_told_otherwise(small_index,
         keys[:50].astype(np.int32)))
     assert lo.shape == (50,) and [lib.launches() for lib in IK.LIBS] \
         == before
+
+
+def test_llm_entry_points_need_a_card_unless_told_otherwise(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import api
+    from repro_torch.models.transformer import Transformer, init_cache
+    cfg = get_config("qwen3-14b", smoke=True).scaled(dtype="float32")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: api.init_params(cfg, 0),
+                 lambda: Transformer(cfg),
+                 lambda: init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params = api.init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.run(cfg, params, steps=2, max_len=8)
+    before = (DK.launches(), AK.launches())
+    res = launcher.run(cfg, params, steps=2, max_len=8, device="cpu")
+    assert res.stats["device"] == "cpu" and len(res.feeds) == 2
+    assert (DK.launches(), AK.launches()) == before

@@ -5,7 +5,11 @@ for bit; the same holds for the step, band and segmented-step lookup
 kernels, and step rows also equal the float64 ``layer.predict``.
 Candidate scoring: rtol 1e-5 to the plain version (the float32
 sums are taken in another order) and 3e-5 to the float64 oracle (the JAX
-package's own tolerance for its device scorers).  Needs an NVIDIA card:
+package's own tolerance for its device scorers).  Decode and flash
+attention: float32 at the JAX kernel tests' limits (decode 3e-5 on o,
+1e-5 on m, l relative 1e-5; flash 2e-5) with TF32 off for the plain
+versions, bfloat16 at 2e-2 — float32 sums in another order.  Needs an
+NVIDIA card:
 run there with ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_kernel_cuda.py``; skips on a machine without one.  It
 imports only the port, so it runs where jax is not installed."""
@@ -18,7 +22,11 @@ from repro_torch.kernels import candidate_score as cs
 from repro_torch.kernels import fused_descent as fd
 from repro_torch.kernels.candidate_score import kernel as CK
 from repro_torch.kernels.fused_descent import kernel as K
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import index_lookup as il
+from repro_torch.kernels.decode_attention import kernel as DK
+from repro_torch.kernels.flash_attention import kernel as AK
 from repro_torch.kernels.index_lookup import kernel as IK
 
 pytestmark = pytest.mark.cuda
@@ -198,3 +206,91 @@ def test_lookup_kernels_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError):
         IK.segmented_step_lookup_cuda(qt, qt[:3], kt, pt[:-1], pt[1:])
     assert [lib.launches() for lib in IK.LIBS] == before
+
+
+ATTN_TOL = {torch.float32: (3e-5, 1e-5, 1e-5, 2e-5),
+            torch.bfloat16: (2e-2, 2e-2, 2e-2, 2e-2)}
+
+
+def _randn(card, seed, *shapes, dtype):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=card).to(dtype)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(40, 8, 128), (32, 2, 64), (8, 8, 128),
+                                      (8, 4, 32)])
+@pytest.mark.parametrize("S", [1, 127, 4096, 20000])     # unsplit and split
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_equals_plain_version(card, Hq, Hkv, D, S,
+                                                      dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B = 3
+    R, G = B * Hkv, Hq // Hkv
+    q, k, v = _randn(card, Hq + S + D, (R, G, D), (R, S, D), (R, S, D),
+                     dtype=dtype)
+    lens = np.random.default_rng(S).integers(1, S + 1, B)
+    lens[0] = 0
+    lt = torch.from_numpy(np.repeat(lens, Hkv).astype(np.int32)).to(card)
+    before = DK.launches()
+    o, m, l = DK.decode_attention_cuda(q, k, v, lt)
+    torch.cuda.synchronize()
+    assert DK.launches() == before + 1
+    po, pm, pl = da.decode_attention_ref(q, k, v, lt)
+    to, tm, tl, _ = ATTN_TOL[dtype]
+    assert float((o - po).abs().max()) <= to
+    assert float((m - pm).abs().max()) <= tm
+    assert float(((l - pl).abs() / pl.clamp_min(1.0)).max()) <= tl
+    assert torch.all(o[:Hkv] == 0) and torch.all(l[:Hkv] == 0)
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=2, Hq=4, Hkv=2, Sq=96, Skv=96, D=64),
+    dict(B=1, Hq=4, Hkv=4, Sq=100, Skv=228, D=32, window=50),
+    dict(B=1, Hq=2, Hkv=1, Sq=128, Skv=128, D=128, window=64, softcap=50.0),
+    dict(B=1, Hq=40, Hkv=8, Sq=1000, Skv=1500, D=128),
+    dict(B=2, Hq=8, Hkv=8, Sq=1, Skv=300, D=128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_equals_plain_version(card, case, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = dict(case)
+    B, Hq, Hkv, Sq, Skv, D = (c.pop(x) for x in ("B", "Hq", "Hkv", "Sq",
+                                                 "Skv", "D"))
+    q, k, v = _randn(card, Sq + Skv, (B, Hq, Sq, D), (B, Hkv, Skv, D),
+                     (B, Hkv, Skv, D), dtype=dtype)
+    before = AK.launches()
+    o = fa.flash_attention(q, k, v, **c)
+    torch.cuda.synchronize()
+    assert AK.launches() == before + 1 and o.dtype == dtype
+    want = fa.attention_ref(q, k, v, **c)
+    assert float((o.float() - want).abs().max()) <= ATTN_TOL[dtype][3]
+
+
+def test_flash_attention_kernel_writes_through_strides(card):
+    B, S, Hq, Hkv, D = 2, 300, 8, 2, 128
+    q, k, v = _randn(card, 1, (B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                     dtype=torch.bfloat16)
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    out = torch.empty(B, S, Hq, D, dtype=torch.bfloat16, device=card)
+    AK.flash_attention_cuda(q, k, v, out=out.transpose(1, 2))
+    want = AK.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out.transpose(1, 2), want)
+
+
+def test_attention_kernels_reject_what_they_do_not_take(card):
+    q = torch.zeros(4, 20, 64, device=card)            # group 20 > 16
+    k = torch.zeros(4, 64, 64, device=card)
+    lens = torch.ones(4, dtype=torch.int32, device=card)
+    before = (DK.launches(), AK.launches())
+    with pytest.raises(ValueError):
+        DK.decode_attention_cuda(q, k, k, lens)
+    with pytest.raises(ValueError):
+        DK.decode_attention_cuda(q[:, :4], k, k, lens.long())
+    with pytest.raises(ValueError):
+        AK.flash_attention_cuda(torch.zeros(1, 2, 8, 96, device=card),
+                                torch.zeros(1, 2, 8, 96, device=card),
+                                torch.zeros(1, 2, 8, 96, device=card))
+    assert (DK.launches(), AK.launches()) == before
