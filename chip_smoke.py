@@ -12,7 +12,9 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
 2. Build: compile all seven kernels from ``src/repro_torch/csrc`` through
    the shared build helper, one ``nvcc`` per source, all started
    together; print each kernel's ptxas registers, shared memory and
-   spills.
+   spills; count the ``HGMMA`` instructions of the flash library and the
+   ``HMMA`` of the decode library in ``cuobjdump -sass`` (fails on 0; a
+   toolkit without ``cuobjdump`` is reported on a line).
 3. Fused descent against its plain version: random packed prefixes (L in
    1/2/4, step-only and mixed, P in 128/640/1664/4096, Q in
    1/255/256/4097/65536); the kernel must equal ``fused_descent_torch`` on
@@ -67,11 +69,16 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
 10. The attention kernels against their plain versions: decode at
    (query, kv) heads 40/8, 32/2 and 8/8, D in 128/64, S in
    1/127/128/4096/32768 with per-row lengths from 1..S and one row of
-   length 0, in bf16 and f32; flash attention over the JAX kernel tests'
-   cases, qwen3-14b's heads at Sq = Skv = 4096 and Sq < Skv, in bf16 and
-   f32.  Limits: f32 at the JAX tests' own (flash 2e-5; decode 3e-5 on
-   o, 1e-5 on m, l relative 1e-5), with TF32 off for the plain versions;
-   bf16 2e-2.
+   length 0, in bf16 and f32, and the bf16 kernel at groups
+   1/4/5/8/16, D in 32/64/128, S in 1/63/64/65/4096/32768 (ragged, one
+   row of length 0, one at S); flash attention over the JAX kernel
+   tests' cases, qwen3-14b's heads at Sq = Skv = 4096 and Sq < Skv, in
+   bf16 and f32, and the bf16 kernel at its tile edges (Sq in
+   1/63/64/65/95/96/97/127/128/129/191/192/193/255, Skv - Sq in 0/1/200,
+   D in 32/64/128) and with window and softcap together at 1,000 tokens.
+   Limits: f32 at the JAX tests' own (flash 2e-5; decode 3e-5 on o, 1e-5
+   on m, l relative 1e-5), with TF32 off for the plain versions; bf16
+   2e-2.
 11. The LLM serving path, after the index phases with the card's memory
    freed: the ``hbm`` profile's ℓ and B measured (4 KiB copies queued
    back to back, 2 GiB copies; CUDA events) and held within 2x of the
@@ -97,8 +104,9 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
    decode tokens/s and step walls, and each attention kernel at the
    path's shapes (and decode at B = 8, S = 32768) beside its plain
    version, the ``scaled_dot_product_attention`` yardstick and its bound,
-   timed with CUDA events around calls queued behind a device sleep (a
-   CUPTI trace now and then loses device records).
+   with its achieved TFLOP/s and GB/s, timed with CUDA events around
+   calls queued behind a device sleep (a CUPTI trace now and then loses
+   device records).
 
 The second-to-last line is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -112,6 +120,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -179,6 +188,21 @@ FLASH_CASES = (
     dict(B=1, Hq=40, Hkv=8, Sq=4096, Skv=4096, D=128),
     dict(B=2, Hq=40, Hkv=8, Sq=1000, Skv=3000, D=128),
 )
+# the bf16 kernels' tile edges (as tests/test_torch_kernel_cuda.py): flash
+# Sq x (Skv - Sq) x D at 2 query and 4 kv heads, B = 2; window and softcap
+# together at 1,000 tokens; decode groups x D x S at B = 4, 2 kv heads
+FLASH_EDGE_SQ = (1, 63, 64, 65, 95, 96, 97, 127, 128, 129, 191, 192, 193,
+                 255)
+FLASH_EDGE_EXTRA = (0, 1, 200)
+EDGE_D = (32, 64, 128)
+FLASH_WINDOWED = (
+    dict(B=1, Hq=4, Hkv=2, Sq=1000, Skv=1000, D=128, window=300,
+         softcap=30.0),
+    dict(B=2, Hq=4, Hkv=4, Sq=1000, Skv=1000, D=64, window=129,
+         softcap=50.0),
+)
+DECODE_GROUPS = (1, 4, 5, 8, 16)
+DECODE_EDGE_S = (1, 63, 64, 65, 4096, 32768)
 # kernel vs plain: float32 at the JAX kernel tests' own limits (flash 2e-5,
 # decode 3e-5 on o and 1e-5 on m; l relative), bfloat16 at 2e-2
 ATTN_TOL = {"float32": {"flash": 2e-5, "o": 3e-5, "m": 1e-5, "l": 1e-5},
@@ -465,10 +489,65 @@ def device_ms_per_call(fn, n: int) -> float:
     return queued_device_ms(fn, min(n, QUEUED_CALLS))
 
 
+# tensor-core instructions each attention library's bf16 kernel must hold
+SASS_COUNTS = {"flash_attention": "HGMMA", "decode_attention": "HMMA"}
+
+
+def cuobjdump() -> str | None:
+    """The toolkit's ``cuobjdump`` (on PATH, else beside ``nvcc``), or
+    None where the toolkit has none."""
+    from repro_torch.kernels._cuda import nvcc
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    return cand if os.path.exists(cand) else None
+
+
+def sass_counts(libs) -> None:
+    """Phase 2's SASS check: count the ``HGMMA`` instructions of the flash
+    library and the ``HMMA`` of the decode library (``cuobjdump -sass``);
+    raises if a count is 0, and prints that the check could not run where
+    the toolkit has no ``cuobjdump``."""
+    tool = cuobjdump()
+    if tool is None:
+        log("SASS check: no cuobjdump in the toolkit; HGMMA/HMMA not counted")
+        return
+    for lib in libs:
+        op = SASS_COUNTS.get(lib.name)
+        if op is None:
+            continue
+        sass = subprocess.run([tool, "-sass", str(lib.library_path())],
+                              check=True, capture_output=True, text=True,
+                              timeout=300).stdout
+        n = len(re.findall(rf"\b{op}\.", sass))
+        log(f"SASS check: {n} {op} instructions in lib{lib.name}.so")
+        if n == 0:
+            raise AssertionError(f"lib{lib.name}.so holds no {op} "
+                                 f"instruction: its bf16 kernel does not "
+                                 f"run on the tensor cores")
+
+
+def check_tensor_core_build(lib) -> None:
+    """The bf16 attention kernels (``*mma_kernel``) must build without
+    spills and without a ptxas warning that it serialized their
+    ``wgmma`` (C75xx)."""
+    func = None
+    for line in lib.build_log.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        if "mma_kernel" not in (func or "") and "mma_kernel" not in line:
+            continue
+        if re.search(r"\(C75\d\d\)", line) or re.search(
+                r"[1-9]\d* bytes spill (stores|loads)", line):
+            raise AssertionError(f"{lib.name}: {line.strip()}")
+
+
 def build_all() -> None:
     """Build every kernel library, one nvcc per source, all started
-    together; print each build's time and ptxas resource lines.  Raises if
-    a build fails."""
+    together; print each build's time and ptxas's registers, shared memory
+    and spills per kernel, then the SASS check.  Raises if a build fails,
+    or if a bf16 attention kernel spills or has its wgmma serialized."""
     from repro_torch.kernels.candidate_score import kernel as CK
     from repro_torch.kernels.fused_descent import kernel as FK
     from repro_torch.kernels.decode_attention import kernel as DK
@@ -487,8 +566,14 @@ def build_all() -> None:
     for lib, (path, secs) in zip(libs, built):
         log(f"build {lib.name}: {secs:.3f} s -> {os.path.relpath(path, HERE)}")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                log(f"  ptxas: {line.split('entry function')[1].strip()}")
+            elif any(w in line for w in ("registers", "smem", "spill",
+                                         "C75")):
                 log(f"  ptxas: {line.strip()}")
+        if lib.name in SASS_COUNTS:
+            check_tensor_core_build(lib)
+    sass_counts(libs)
 
 
 # ---------------------------------------------------------------------------
@@ -1371,6 +1456,27 @@ def check_attention_kernels(device, seed: int) -> dict:
                            dtype=torch.float32).to(dt)
 
     errs = {"decode_attention": 0.0, "flash_attention": 0.0}
+
+    def check_decode(got, want, dt: str, what: str) -> None:
+        (o, m, l), (po, pm, pl) = got, want
+        tol = ATTN_TOL[dt]
+        eo = float((o - po).abs().max())
+        em = float((m - pm).abs().max())
+        el = float(((l - pl).abs() / pl.clamp_min(1.0)).max())
+        errs["decode_attention"] = max(errs["decode_attention"], eo)
+        if not (eo <= tol["o"] and em <= tol["m"] and el <= tol["l"]):
+            raise AssertionError(
+                f"decode_attention {what} {dt}: |o| err {eo:.3e}, |m| err "
+                f"{em:.3e}, l rel err {el:.3e} (limits {tol})")
+
+    def check_flash(o, want, dt: str, case) -> None:
+        err = float((o.float() - want).abs().max())
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        lim = ATTN_TOL[dt]["flash"]
+        if not err <= lim:
+            raise AssertionError(f"flash_attention {case} {dt}: max abs "
+                                 f"err {err:.3e} (limit {lim})")
+
     n_dec = 0
     for Hq, Hkv in DECODE_PAIRS:
         for D in DECODE_D:
@@ -1383,24 +1489,47 @@ def check_attention_kernels(device, seed: int) -> dict:
                     lens[0] = 0                 # one batch row of length 0
                     lt = torch.from_numpy(np.repeat(lens, Hkv).astype(
                         np.int32)).to(device)
-                    o, m, l = decode_attention_cuda(q, k, v, lt)
-                    po, pm, pl = decode_attention_ref(q, k, v, lt)
+                    got = decode_attention_cuda(q, k, v, lt)
+                    want = decode_attention_ref(q, k, v, lt)
                     torch.cuda.synchronize()
-                    tol = ATTN_TOL[str(dt).split(".")[-1]]
-                    eo = float((o - po).abs().max())
-                    em = float((m - pm).abs().max())
-                    el = float(((l - pl).abs() / pl.clamp_min(1.0)).max())
-                    errs["decode_attention"] = max(errs["decode_attention"],
-                                                   eo)
+                    check_decode(got, want, str(dt).split(".")[-1],
+                                 f"Hq={Hq} Hkv={Hkv} D={D} S={S}")
                     n_dec += 1
-                    if not (eo <= tol["o"] and em <= tol["m"]
-                            and el <= tol["l"]):
-                        raise AssertionError(
-                            f"decode_attention Hq={Hq} Hkv={Hkv} D={D} S={S} "
-                            f"{dt}: |o| err {eo:.3e}, |m| err {em:.3e}, l rel "
-                            f"err {el:.3e} (limits {tol})")
-                    del q, k, v, po, pm, pl
+                    del q, k, v, got, want
+    for group in DECODE_GROUPS:         # the bf16 kernel's groups, edges
+        for D in EDGE_D:
+            for S in DECODE_EDGE_S:
+                R, bf = DECODE_B * 2, torch.bfloat16
+                q, k, v = (randn((R, group, D), bf), randn((R, S, D), bf),
+                           randn((R, S, D), bf))
+                lens = rng.integers(1, S + 1, DECODE_B)
+                lens[1], lens[2] = 0, S
+                lt = torch.from_numpy(np.repeat(lens, 2).astype(
+                    np.int32)).to(device)
+                got = decode_attention_cuda(q, k, v, lt)
+                want = decode_attention_ref(q, k, v, lt)
+                torch.cuda.synchronize()
+                check_decode(got, want, "bfloat16",
+                             f"group={group} D={D} S={S}")
+                n_dec += 1
+                del q, k, v, got, want
     n_fl = 0
+    edges = [dict(B=2, Hq=4, Hkv=2, Sq=Sq, Skv=Sq + extra, D=D)
+             for Sq in FLASH_EDGE_SQ for extra in FLASH_EDGE_EXTRA
+             for D in EDGE_D]
+    for case in (*edges, *FLASH_WINDOWED):   # the bf16 kernel alone
+        c = dict(case)
+        B, Hq, Hkv, Sq, Skv, D = (c.pop(x) for x in ("B", "Hq", "Hkv", "Sq",
+                                                     "Skv", "D"))
+        q = randn((B, Hq, Sq, D), torch.bfloat16)
+        k = randn((B, Hkv, Skv, D), torch.bfloat16)
+        v = randn((B, Hkv, Skv, D), torch.bfloat16)
+        o = flash_attention_cuda(q, k, v, causal=True, **c)
+        want = attention_ref(q, k, v, causal=True, **c)
+        torch.cuda.synchronize()
+        check_flash(o, want, "bfloat16", case)
+        n_fl += 1
+        del q, k, v, o, want
     for case in FLASH_CASES:
         c = dict(case)
         B, Hq, Hkv, Sq, Skv, D = (c.pop(x) for x in ("B", "Hq", "Hkv", "Sq",
@@ -1411,13 +1540,8 @@ def check_attention_kernels(device, seed: int) -> dict:
             o = flash_attention_cuda(q, k, v, causal=True, **c)
             want = attention_ref(q, k, v, causal=True, **c)
             torch.cuda.synchronize()
-            err = float((o.float() - want).abs().max())
-            errs["flash_attention"] = max(errs["flash_attention"], err)
+            check_flash(o, want, str(dt).split(".")[-1], case)
             n_fl += 1
-            lim = ATTN_TOL[str(dt).split(".")[-1]]["flash"]
-            if not err <= lim:
-                raise AssertionError(f"flash_attention {case} {dt}: max abs "
-                                     f"err {err:.3e} (limit {lim})")
             del q, k, v, o, want
     log(f"attention check: {n_dec} decode cases, max |o| err "
         f"{errs['decode_attention']:.3e}; {n_fl} flash cases, max abs err "
@@ -1554,6 +1678,10 @@ def attention_numbers(name: str, kern, plain, library, nbytes: int,
             for k, f in fns.items()}
     warm = {k: queued_device_ms(f, n) for k, f in fns.items()}
     bound_ms, bound_by = roofline_bound(nbytes, ops, BF16_OPS_PER_S)
+    sec = cold["ms"] / 1e3
+    log(f"{name} at {shape} on {card}: achieved {ops / sec / 1e12:.3f} "
+        f"TFLOP/s and {nbytes / sec / 1e9:.3f} GB/s L2-cold "
+        f"({bound_ms / cold['ms']:.4f} of the bound)")
     log(f"{name} at {shape} on {card}: device time per call with the L2 "
         f"flushed {cold['ms'] * 1e3:.3f} us (plain torch "
         f"{cold['plain_ms'] * 1e3:.3f} us; SDPA {cold['library_ms'] * 1e3:.3f}"

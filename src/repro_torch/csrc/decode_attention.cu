@@ -14,40 +14,56 @@
 // Arithmetic is float32 whatever the storage type (bf16 or f32, for q and
 // for k/v independently).  A row of length 0 gives o = 0, m = -1e30, l = 0,
 // as the TPU kernel does (it skips every block); such a row weighs 0 in a
-// combination of partials.
+// combination of partials.  Masked scores are -1e30, not -inf, and their
+// probabilities 0, so no NaN can arise.
 //
-// Design.  Flash-decoding: the grid is (n_split, R).  Block (i, r) takes
-// the i-th of n_split equal chunks of [0, kv_length[r]) (rounded up to the
-// 64-key tile), so every split carries work whatever the length, and the
-// blocks fill the card even at R = B * Hkv = 32 rows.  A block of 128
-// threads holds the row's query heads, pre-scaled, in shared memory and
-// streams its chunk in 64-key K/V tiles: the next tile's raw bytes are
-// loaded into registers (16-byte loads, neighbouring threads on
-// neighbouring addresses) while the current tile, converted to float32 in
-// shared memory, is consumed, so loads stay in flight during the
-// arithmetic.  Keys past the chunk's end are zero-filled, never read.
-// Scores: thread (j, h) computes key j's dot product for heads h, h+2, ...;
-// the tile maximum per head is reduced with warp shuffles; the online
-// softmax rescales with exp(m_prev - m_new).  P·V: thread (d, g0) owns
-// output column d for heads g0, g0 + 128/D, ...  Masked scores are -1e30,
-// not -inf, and their probabilities are set to 0, so no NaN can arise.
-// With n_split > 1 each block writes its partial triple to scratch and a
-// second kernel of the same launch combines them per row with the
-// combine_partials math (M = max m_i, L = sum l_i e^(m_i - M),
+// Flash-decoding, both kernels: the grid is (n_split, R).  Block (i, r)
+// takes the i-th of n_split equal chunks of [0, kv_length[r]) (rounded up
+// to the 64-key tile), so every split carries work whatever the length; a
+// split that starts past the row's length writes the empty triple and
+// exits at once.  With n_split > 1 each block writes its partial triple
+// to scratch and a second kernel of the same launch combines them per row
+// with the combine_partials math (M = max m_i, L = sum l_i e^(m_i - M),
 // O = sum o_i l_i e^(m_i - M) / L).  One call of decode_attention_launch
-// is one launch of this kernel for the wrapper's count.
+// is one launch for the wrapper's count.
+//
+// bf16 q with bf16 k/v (the model's path): tensor-core tiles over a
+// cp.async ring.  Four warps a block; each 64-key tile gives every warp a
+// slice of 16 keys, which that warp copies itself with 16-byte
+// cp.async.cg into its own three-stage ring in shared memory (bf16, each
+// chunk at an XOR-swizzled address so that ldmatrix reads its eight rows
+// from eight bank groups); keys past the chunk's end are zero-filled by
+// the copy's source size and never read.  The row's query heads are
+// padded to the 16 rows of mma.sync.m16n8k16 (bf16 -> f32) and held as A
+// fragments in registers, loaded once: no loop over head slots, any group
+// up to 16.  Per slice: S (16 heads x 16 keys) = Q · Kᵀ from ldmatrix'd K
+// fragments, then scale, the length mask and the online softmax on the
+// accumulators (row max over the four lanes of a row; O rescaled only
+// when some row's max moved); P is re-packed from the S accumulators into
+// the A fragment of O += P · V (V through ldmatrix.trans), so it never
+// goes through shared memory.  Each warp keeps its own m, l and O; the
+// only waits inside the loop are its ring's stage waits (cp.async.wait_group
+// and __syncwarp).  The four warps' partials are merged once, at the end
+// of the block's chunk, through shared memory.  At D = 128 a block holds
+// 96 KB of ring, two blocks an SM, with up to 64 KB of K/V in flight per
+// block (Little's law wants ~25 KB an SM: 3.35 TB/s x ~1 us / 132 SMs).
+//
+// Other type pairs (tests only): the first port's kernel on CUDA cores,
+// kept as it was: tiles widened to float32 in shared memory, one tile of
+// loads in flight in registers, head slots up to 16.
 //
 // Bound.  Bytes: each row's K and V up to its length, plus q and the
-// outputs; the FLOPs (4 * group * D per key) are 10-40x below the float32
-// rate's share, so it is bound by device memory (3.35 TB/s on the H100
-// SXM).  At short caches (the serving loop's) launch latency sets its
-// time.  This simple design converts every tile to float32 in shared
-// memory (2 blocks per SM at D = 128) and overlaps one tile of loads
-// with the arithmetic; a deeper cp.async / TMA pipeline is later work.
+// outputs; the FLOPs (4 * group * D per key) are far below the tensor
+// cores' share, so it is bound by device memory (3.35 TB/s on the H100
+// SXM): 320.6 us at B = 8 x 32,768 (qwen3-14b's 8 kv heads of 128).  At
+// short caches (the serving loop's) launch latency sets its time.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
+
+typedef __nv_bfloat16 bf16;
 
 #define THREADS 128
 #define TK 64
@@ -84,7 +100,7 @@ struct DecodeSmem {
 
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                         const TKV* __restrict__ v,
                         const int* __restrict__ kv_length, int group, int S,
                         int n_split, float scale, float* __restrict__ o_out,
@@ -264,43 +280,339 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     }
 }
 
-// Combine n_split partial triples per row (the combine_partials math).
+// Combine n_split partial triples per row (the combine_partials math):
+// one thread per (row, head, column), the splits in order.
 __global__ void __launch_bounds__(THREADS)
 combine_partials_kernel(const float* __restrict__ o_part,
                         const float* __restrict__ m_part,
                         const float* __restrict__ l_part, int R, int group,
                         int D, int n_split, float* __restrict__ o,
                         float* __restrict__ m, float* __restrict__ l) {
-    const int r = blockIdx.x;
-    for (int idx = threadIdx.x; idx < group * D; idx += THREADS) {
-        const int g = idx / D, d = idx % D;
-        float M = NEG_INF;
-        for (int i = 0; i < n_split; ++i)
-            M = fmaxf(M, m_part[((size_t)i * R + r) * group + g]);
-        float L = 0.0f, O = 0.0f;
-        for (int i = 0; i < n_split; ++i) {
-            const size_t pr = ((size_t)i * R + r) * group + g;
-            const float w = l_part[pr] * expf(m_part[pr] - M);
-            L += w;
-            O += o_part[pr * D + d] * w;
+    const int r = blockIdx.y;
+    const int idx = blockIdx.x * THREADS + threadIdx.x;
+    if (idx >= group * D) return;
+    const int g = idx / D, d = idx % D;
+    float M = NEG_INF;
+#pragma unroll 4
+    for (int i = 0; i < n_split; ++i)
+        M = fmaxf(M, m_part[((size_t)i * R + r) * group + g]);
+    float L = 0.0f, O = 0.0f;
+#pragma unroll 4
+    for (int i = 0; i < n_split; ++i) {
+        const size_t pr = ((size_t)i * R + r) * group + g;
+        const float w = l_part[pr] * expf(m_part[pr] - M);
+        L += w;
+        O += o_part[pr * D + d] * w;
+    }
+    const size_t out = ((size_t)r * group + g);
+    o[out * D + d] = O / fmaxf(L, 1e-30f);
+    if (d == 0) {
+        m[out] = M;
+        l[out] = L;
+    }
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16 x bf16: mma.sync over a cp.async ring
+// ---------------------------------------------------------------------------
+#define MMA_WARPS 4
+#define MMA_KW 16                      // keys of a warp's slice of a tile
+#define MMA_TK (MMA_WARPS * MMA_KW)    // keys a tile (= TK)
+#define MMA_STAGES 3
+#define LOG2E 1.4426950408889634f
+
+template <int D>
+struct MmaSmem {
+    static constexpr int SLICE = MMA_KW * D * 2;    // one K or V slice
+    static constexpr int RING = MMA_WARPS * MMA_STAGES * 2 * SLICE;
+    static constexpr int MERGE = MMA_WARPS * (16 * D + 2 * 16) * 4;
+    static constexpr int BYTES = RING > MERGE ? RING : MERGE;
+};
+
+// the 16-byte unit of chunk c of key row j of a slice: chunks XOR-swizzled
+// so that the eight rows one ldmatrix reads fall in eight bank groups
+template <int D>
+__device__ __forceinline__ int swz(int j, int c) {
+    constexpr int CPR = D / 8;                       // chunks a row
+    constexpr int RPL = CPR >= 8 ? 1 : 8 / CPR;      // rows a 128-byte line
+    constexpr int MASK = CPR >= 8 ? 7 : CPR - 1;
+    return j * CPR + (c ^ ((j / RPL) & MASK));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16) · b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_WARPS * 32, 2)
+decode_attention_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const int* __restrict__ kv_length, int group,
+                            int S, int n_split, float scale,
+                            float* __restrict__ o_out,
+                            float* __restrict__ m_out,
+                            float* __restrict__ l_out) {
+    using L = MmaSmem<D>;
+    constexpr int CPR = D / 8;         // 16-byte chunks of a key row
+    constexpr int NB = D / 8;          // n-blocks of 8 output columns
+    constexpr int THR = MMA_WARPS * 32;
+    extern __shared__ uint4 smem16[];
+    uint8_t* smem = reinterpret_cast<uint8_t*>(smem16);
+
+    const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+    const int split = blockIdx.x, r = blockIdx.y, R = gridDim.y;
+    const int len = kv_length[r];
+    int chunk = (len + n_split - 1) / n_split;
+    chunk = (chunk + MMA_TK - 1) / MMA_TK * MMA_TK;
+    const int start = split * chunk;
+    const int end = min(start + chunk, len);
+
+    // output slot: the final arrays when unsplit, else this split's partial
+    const size_t orow = (size_t)split * R + r;
+    float* o_dst = o_out + orow * group * D;
+    float* m_dst = m_out + orow * group;
+    float* l_dst = l_out + orow * group;
+    if (start >= end) {                  // nothing live: the empty triple
+        for (int i = t; i < group * D; i += THR) o_dst[i] = 0.0f;
+        for (int i = t; i < group; i += THR) {
+            m_dst[i] = NEG_INF;
+            l_dst[i] = 0.0f;
         }
-        const size_t out = ((size_t)r * group + g);
-        o[out * D + d] = O / fmaxf(L, 1e-30f);
+        return;
+    }
+
+    // Q as A fragments: heads h0 and h0 + 8 (zero past the group)
+    const int h0 = lane >> 2, c2 = 2 * (lane & 3);
+    const bf16* qr = q + (size_t)r * group * D;
+    uint32_t qa[D / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+            const int hh = h0 + 8 * (x & 1);
+            const int d = 16 * ks + 8 * (x >> 1) + c2;
+            qa[ks][x] = hh < group
+                ? *reinterpret_cast<const uint32_t*>(qr + hh * D + d) : 0u;
+        }
+    }
+
+    // this warp's ring and its slices of each tile
+    uint8_t* ring = smem + warp * MMA_STAGES * 2 * L::SLICE;
+    const bf16* kr = k + (size_t)r * S * D;
+    const bf16* vr = v + (size_t)r * S * D;
+    const int n_tiles = (end - start + MMA_TK - 1) / MMA_TK;
+    auto issue = [&](int tile) {
+        const uint32_t ks_ = smem_u32(ring + (tile % MMA_STAGES) * 2
+                                      * L::SLICE);
+        const uint32_t vs_ = ks_ + L::SLICE;
+        const int key0 = start + tile * MMA_TK + warp * MMA_KW;
+#pragma unroll
+        for (int i = lane; i < MMA_KW * CPR; i += 32) {
+            const int j = i / CPR, c = i % CPR;
+            const int key = key0 + j;
+            const bool live = key < end;
+            const size_t off = (size_t)(live ? key : start) * D + c * 8;
+            const uint32_t so = swz<D>(j, c) * 16;
+            cp_async16(ks_ + so, kr + off, live ? 16 : 0);
+            cp_async16(vs_ + so, vr + off, live ? 16 : 0);
+        }
+    };
+
+    float acc[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[nb][x] = 0.0f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
+
+    // ldmatrix lanes: the row and chunk half each lane addresses
+    const int mi = lane >> 3;
+    const int jk = (mi >> 1) * 8 + (lane & 7), ck = mi & 1;    // K
+    const int jv = (mi & 1) * 8 + (lane & 7), cv = mi >> 1;    // V (trans)
+
+#pragma unroll
+    for (int s = 0; s < MMA_STAGES - 1; ++s) {
+        if (s < n_tiles) issue(s);
+        cp_async_commit();
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+        if (i + MMA_STAGES - 1 < n_tiles) issue(i + MMA_STAGES - 1);
+        cp_async_commit();
+        cp_async_wait<MMA_STAGES - 1>();
+        __syncwarp();
+        const uint32_t ks_ = smem_u32(ring + (i % MMA_STAGES) * 2 * L::SLICE);
+        const uint32_t vs_ = ks_ + L::SLICE;
+
+        // S = Q · Kᵀ: keys 0-7 in s0, 8-15 in s1
+        float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+            uint32_t b[4];
+            ldsm_x4(b, ks_ + swz<D>(jk, 2 * ks + ck) * 16);
+            mma16816(s0, qa[ks], b[0], b[1]);
+            mma16816(s1, qa[ks], b[2], b[3]);
+        }
+
+        // scale, the length mask, the online softmax (rows h0, h0 + 8)
+        const int kb = start + i * MMA_TK + warp * MMA_KW + c2;
+        const bool lv[4] = {kb < end, kb + 1 < end, kb + 8 < end,
+                            kb + 9 < end};
+        float x[8];                       // (row, key) in s0/s1 order
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            x[e] = lv[(e & 1)] ? s0[e] * scale : NEG_INF;
+            x[4 + e] = lv[2 + (e & 1)] ? s1[e] * scale : NEG_INF;
+        }
+        float mx0 = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[4], x[5]));
+        float mx1 = fmaxf(fmaxf(x[2], x[3]), fmaxf(x[6], x[7]));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float al0 = exp2f((m0 - mn0) * LOG2E);
+        const float al1 = exp2f((m1 - mn1) * LOG2E);
+        m0 = mn0;
+        m1 = mn1;
+        float p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            const float mn = (e & 2) ? mn1 : mn0;
+            p[e] = x[e] > 0.5f * NEG_INF ? exp2f((x[e] - mn) * LOG2E) : 0.0f;
+        }
+        l0 = l0 * al0 + (p[0] + p[1] + p[4] + p[5]);
+        l1 = l1 * al1 + (p[2] + p[3] + p[6] + p[7]);
+        if (__any_sync(0xffffffffu, al0 != 1.0f || al1 != 1.0f)) {
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb) {
+                acc[nb][0] *= al0;
+                acc[nb][1] *= al0;
+                acc[nb][2] *= al1;
+                acc[nb][3] *= al1;
+            }
+        }
+        // P from the S accumulators straight into an A fragment
+        const uint32_t pa[4] = {pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]),
+                                pack_bf16(p[4], p[5]), pack_bf16(p[6], p[7])};
+
+        // O += P · V
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+            uint32_t b[4];
+            ldsm_x4_t(b, vs_ + swz<D>(jv, 2 * np + cv) * 16);
+            mma16816(acc[2 * np], pa, b[0], b[1]);
+            mma16816(acc[2 * np + 1], pa, b[2], b[3]);
+        }
+        __syncwarp();                    // the stage is free for a copy
+    }
+    cp_async_wait<0>();
+
+    // merge the four warps' partials once
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    __syncthreads();                     // every warp is done with its ring
+    float* mo = reinterpret_cast<float*>(smem);         // (warps, 16, D)
+    float* mm = mo + MMA_WARPS * 16 * D;                // (warps, 16)
+    float* ml = mm + MMA_WARPS * 16;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+        float* row0 = mo + (warp * 16 + h0) * D + 8 * nb + c2;
+        float* row1 = row0 + 8 * D;
+        row0[0] = acc[nb][0];
+        row0[1] = acc[nb][1];
+        row1[0] = acc[nb][2];
+        row1[1] = acc[nb][3];
+    }
+    if ((lane & 3) == 0) {
+        mm[warp * 16 + h0] = m0;
+        mm[warp * 16 + h0 + 8] = m1;
+        ml[warp * 16 + h0] = l0;
+        ml[warp * 16 + h0 + 8] = l1;
+    }
+    __syncthreads();
+    for (int i = t; i < group * D; i += THR) {
+        const int gh = i / D, d = i % D;
+        float M = NEG_INF;
+#pragma unroll
+        for (int w = 0; w < MMA_WARPS; ++w) M = fmaxf(M, mm[w * 16 + gh]);
+        float Lsum = 0.0f, O = 0.0f;
+#pragma unroll
+        for (int w = 0; w < MMA_WARPS; ++w) {
+            const float e = expf(mm[w * 16 + gh] - M);
+            Lsum += ml[w * 16 + gh] * e;
+            O += mo[(w * 16 + gh) * D + d] * e;
+        }
+        o_dst[i] = O / fmaxf(Lsum, 1e-30f);
         if (d == 0) {
-            m[out] = M;
-            l[out] = L;
+            m_dst[gh] = M;
+            l_dst[gh] = Lsum;
         }
     }
 }
 
+static_assert(MMA_WARPS * 32 == THREADS, "one block size for both kernels");
+
 template <typename TQ, typename TKV, int D>
-static int launch_typed(const void* q, const void* k, const void* v,
-                        const int* kv_length, int R, int group, int S,
-                        int n_split, float scale, float* o, float* m,
-                        float* l, float* o_part, float* m_part,
-                        float* l_part, cudaStream_t stream) {
-    auto kern = decode_attention_kernel<TQ, TKV, D>;
-    const int smem = DecodeSmem<TQ, TKV, D>::BYTES;
+struct KernelSmem {              // the CUDA-core kernel's, for a type pair
+    static constexpr int BYTES = DecodeSmem<TQ, TKV, D>::BYTES;
+};
+template <int D>
+struct KernelSmem<bf16, bf16, D> {   // the tensor-core kernel's
+    static constexpr int BYTES = MmaSmem<D>::BYTES;
+};
+
+template <typename TQ, typename TKV, int D, typename Kern>
+static int launch_kernel(Kern kern, const void* q, const void* k,
+                         const void* v, const int* kv_length, int R,
+                         int group, int S, int n_split, float scale,
+                         float* o, float* m, float* l, float* o_part,
+                         float* m_part, float* l_part, cudaStream_t stream) {
+    const int smem = KernelSmem<TQ, TKV, D>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -311,9 +623,28 @@ static int launch_typed(const void* q, const void* k, const void* v,
         split ? l_part : l);
     err = cudaGetLastError();
     if (err != cudaSuccess || !split) return (int)err;
-    combine_partials_kernel<<<R, THREADS, 0, stream>>>(
+    const dim3 cgrid((group * D + THREADS - 1) / THREADS, R);
+    combine_partials_kernel<<<cgrid, THREADS, 0, stream>>>(
         o_part, m_part, l_part, R, group, D, n_split, o, m, l);
     return (int)cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, int D>
+static int launch_typed(const void* q, const void* k, const void* v,
+                        const int* kv_length, int R, int group, int S,
+                        int n_split, float scale, float* o, float* m,
+                        float* l, float* o_part, float* m_part,
+                        float* l_part, cudaStream_t stream) {
+    if constexpr (std::is_same<TQ, bf16>::value
+                  && std::is_same<TKV, bf16>::value)
+        return launch_kernel<TQ, TKV, D>(
+            decode_attention_mma_kernel<D>, q, k, v, kv_length, R, group, S,
+            n_split, scale, o, m, l, o_part, m_part, l_part, stream);
+    else
+        return launch_kernel<TQ, TKV, D>(
+            decode_attention_fma_kernel<TQ, TKV, D>, q, k, v, kv_length, R,
+            group, S, n_split, scale, o, m, l, o_part, m_part, l_part,
+            stream);
 }
 
 template <typename TQ, typename TKV>
@@ -369,6 +700,25 @@ extern "C" int decode_attention_launch(
             pl, st);
     return launch_dim<float, float>(D, q, k, v, len, R, group, S, n_split,
                                     scale, fo, fm, fl, po, pm, pl, st);
+}
+
+// Dynamic shared memory of one block of the kernel a type pair takes at
+// head dimension D, or -1 for a D the kernels do not take.
+template <typename TQ, typename TKV>
+static int smem_dim(int D) {
+    switch (D) {
+    case 32: return KernelSmem<TQ, TKV, 32>::BYTES;
+    case 64: return KernelSmem<TQ, TKV, 64>::BYTES;
+    case 128: return KernelSmem<TQ, TKV, 128>::BYTES;
+    default: return -1;
+    }
+}
+
+extern "C" int decode_attention_smem_bytes(int D, int q_bf16, int kv_bf16) {
+    if (q_bf16 && kv_bf16) return smem_dim<bf16, bf16>(D);
+    if (q_bf16) return smem_dim<bf16, float>(D);
+    if (kv_bf16) return smem_dim<float, bf16>(D);
+    return smem_dim<float, float>(D);
 }
 
 extern "C" const char* decode_attention_error_string(int code) {

@@ -32,20 +32,56 @@ build = LIB.build
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
-TILE = 64                # keys per tile (TK in the source)
+TILE = 64                # keys per tile (TK / MMA_TK in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMS: dict = {}
+#: blocks of the tensor-core kernel an SM holds at D = 128 (two rings of
+#: 96 KB); :func:`split_count` sizes one wave of them
+BLOCKS_PER_SM = 2
+# the source's constants: warps a block, keys a warp's slice, ring stages;
+# the CUDA-core kernel's head slots
+MMA_WARPS, MMA_KEYS, MMA_STAGES, FMA_SLOTS = 4, 16, 3, 16
 
 
-def split_count(rows: int, S: int, device: torch.device) -> int:
-    """Blocks per row: enough for about four blocks per SM (a block with
-    few warps hides little latency alone), each with at least one 64-key
-    tile of the cache's capacity."""
+def kernel_path(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    """Which kernel of the source a (q, k/v) type pair launches: "mma"
+    (tensor cores, bf16 x bf16: the model's path) or "fma" (CUDA cores,
+    the other three pairs)."""
+    for dt in (q_dtype, kv_dtype):
+        if dt not in _DTYPES:
+            raise ValueError(f"decode attention takes float32 or bfloat16, "
+                             f"not {dt}")
+    return "mma" if q_dtype == kv_dtype == torch.bfloat16 else "fma"
+
+
+def smem_bytes(D: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the kernel the pair takes
+    (``MmaSmem`` / ``DecodeSmem`` in the source; the card tests hold the
+    two against each other)."""
+    if kernel_path(q_dtype, kv_dtype) == "mma":
+        ring = MMA_WARPS * MMA_STAGES * 2 * MMA_KEYS * D * 2
+        merge = MMA_WARPS * (16 * D + 2 * 16) * 4
+        return max(ring, merge)
+    G = FMA_SLOTS
+    return (G * D + TILE * (D + 4) + TILE * D + G * TILE + 4 * (G // 2)
+            + 2 * G) * 4
+
+
+def split_count(rows: int, S: int, sms: int) -> int:
+    """Blocks per row: one wave of :data:`BLOCKS_PER_SM` blocks on each of
+    ``sms`` SMs shared over ``rows`` rows (each row's live length is cut
+    into that many chunks), at least one, and no more than the 64-key
+    tiles of the cache's capacity ``S``.  A pure function: the wrapper
+    cannot read the rows' lengths without a synchronisation."""
+    want = max(1, BLOCKS_PER_SM * sms // rows)
+    return min(want, -(-S // TILE))
+
+
+def _sms(device: torch.device) -> int:
     if device not in _SMS:
         _SMS[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    want = -(-4 * _SMS[device] // rows)
-    return max(1, min(want, -(-S // TILE)))
+    return _SMS[device]
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,7 +91,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or bfloat16 on one CUDA device (k and v of one type),
     kv_length (R,) int32 there → (o (R, group, D), m (R, group),
     l (R, group)) float32; :func:`split_count` blocks share each row's
-    live length.  Raises on anything the kernel does not take."""
+    live length, and :func:`kernel_path` names the kernel the types take.
+    Raises on anything the kernel does not take."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs a CUDA tensor, "
@@ -86,7 +123,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kv_length must be a contiguous ({R},) int32 "
                          f"tensor on {dev}")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    n_split = split_count(R, S, dev)
+    n_split = split_count(R, S, _sms(dev))
     o = torch.empty((R, G, D), dtype=torch.float32, device=dev)
     m = torch.empty((R, G), dtype=torch.float32, device=dev)
     l = torch.empty((R, G), dtype=torch.float32, device=dev)

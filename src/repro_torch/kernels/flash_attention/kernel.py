@@ -31,6 +31,29 @@ build = LIB.build
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the source's tiles: the wgmma kernel's query rows a block, keys a tile
+# and ring stages; the CUDA-core kernel's query and key tiles
+WG_BQ, WG_BK, WG_STAGES, FMA_TILE = 128, 96, 4, 64
+
+
+def kernel_path(dtype: torch.dtype) -> str:
+    """Which kernel of the source a storage type launches: "wgmma" (tensor
+    cores fed by TMA, bf16: the model's path) or "fma" (CUDA cores,
+    float32, which no tensor-core path holds to 2e-5)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash attention takes float32 or bfloat16, not "
+                         f"{dtype}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def smem_bytes(D: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the kernel ``dtype`` takes
+    (``WgLayout`` / ``FlashSmem`` in the source; the card tests hold the
+    two against each other)."""
+    if kernel_path(dtype) == "wgmma":
+        bars = (1 + 2 * WG_STAGES) * 8
+        return 1024 + (WG_BQ + 2 * WG_STAGES * WG_BK) * D * 2 + bars
+    return (3 * D * FMA_TILE + FMA_TILE * FMA_TILE) * 4
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,7 +66,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     last dimension (other strides are free) and 1 ≤ Sq ≤ Skv → (B, Hq, Sq,
     D) in q's type, queries end-aligned to the keys.  ``out`` (same shape
     and type, last dimension contiguous) receives the result if given.
-    Raises on anything the kernel does not take."""
+    :func:`kernel_path` names the kernel the type takes.  Raises on
+    anything the kernel does not take."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs a CUDA tensor, "

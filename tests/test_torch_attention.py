@@ -204,3 +204,75 @@ def test_flash_writes_through_strides_and_refuses_more_queries_than_keys():
     with pytest.raises(ValueError, match="CUDA tensor"):
         AK.flash_attention_cuda(q, k, v)
     assert AK.launches() == before
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' host-side arithmetic (pure functions of shape and SM count)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rows,S,sms,want", [
+    (64, 32768, 132, 4),        # B = 8 x 8 kv heads: one wave of 256 blocks
+    (32, 512, 132, 8),          # B = 4, cache 512: eight 64-key chunks
+    (32, 36, 132, 1),           # the serving loop's last step: one tile
+    (6, 20000, 132, 44),
+    (264, 4096, 132, 1),        # a wave of rows already
+    (1000, 1, 132, 1),
+    (1, 1, 132, 1),
+    (1, 32768, 132, 264),
+    (8, 4096, 16, 4),
+])
+def test_decode_split_count(rows, S, sms, want):
+    n = DK.split_count(rows, S, sms)
+    assert n == want
+    assert 1 <= n <= -(-S // DK.TILE)
+    assert rows * n <= max(rows, DK.BLOCKS_PER_SM * sms)
+
+
+def test_decode_split_count_covers_every_key_and_ends_dead_splits():
+    """Every split count gives chunks (rounded to the 64-key tile) that
+    cover a row's live length exactly once; splits past the length are
+    the ones that exit at once."""
+    for S in (1, 63, 64, 65, 4096, 32768):
+        for rows in (1, 6, 32, 64, 500):
+            n = DK.split_count(rows, S, 132)
+            for length in {0, 1, S // 2, S}:
+                chunk = -(-length // n) if length else 0
+                chunk = -(-chunk // DK.TILE) * DK.TILE
+                spans = [(i * chunk, min(i * chunk + chunk, length))
+                         for i in range(n)]
+                live = [(a, b) for a, b in spans if a < b]
+                assert sum(b - a for a, b in live) == length
+                assert all(a % DK.TILE == 0 for a, _ in live)
+
+
+def test_kernel_paths_by_type_pair():
+    bf, f32 = torch.bfloat16, torch.float32
+    assert DK.kernel_path(bf, bf) == "mma"
+    assert DK.kernel_path(bf, f32) == DK.kernel_path(f32, bf) \
+        == DK.kernel_path(f32, f32) == "fma"
+    assert AK.kernel_path(bf) == "wgmma" and AK.kernel_path(f32) == "fma"
+    with pytest.raises(ValueError):
+        DK.kernel_path(torch.float16, bf)
+    with pytest.raises(ValueError):
+        AK.kernel_path(torch.float16)
+
+
+H100_SMEM_PER_BLOCK = 232_448    # dynamic shared memory a block may have
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_shared_memory_of_every_instantiation_fits(D):
+    """Each kernel instantiation's dynamic shared memory is at most the
+    232,448 B a block may have, and the decode ring leaves room for the
+    blocks per SM that the split count plans on (228 KB an SM, 1 KB of it
+    reserved per block)."""
+    types = (torch.float32, torch.bfloat16)
+    for q_dt in types:
+        assert 0 < AK.smem_bytes(D, q_dt) <= H100_SMEM_PER_BLOCK
+        for kv_dt in types:
+            assert 0 < DK.smem_bytes(D, q_dt, kv_dt) <= H100_SMEM_PER_BLOCK
+    ring = DK.smem_bytes(D, torch.bfloat16, torch.bfloat16)
+    assert DK.BLOCKS_PER_SM * (ring + 1024) <= 228 * 1024
+    # the wgmma kernel at D = 128: 1024 B of alignment slack, the 128-row
+    # Q tile, four stages of 96-key K and V tiles and nine mbarriers
+    assert AK.smem_bytes(128, torch.bfloat16) == 1024 + 32768 \
+        + 4 * 2 * 24576 + 9 * 8

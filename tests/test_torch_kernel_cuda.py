@@ -294,3 +294,108 @@ def test_attention_kernels_reject_what_they_do_not_take(card):
                                 torch.zeros(1, 2, 8, 96, device=card),
                                 torch.zeros(1, 2, 8, 96, device=card))
     assert (DK.launches(), AK.launches()) == before
+
+
+# the bf16 kernels' tile edges: 128-query (64 a warpgroup) and 96-key
+# flash tiles, 64-key decode tiles of four 16-key warp slices
+FLASH_EDGE_SQ = (1, 63, 64, 65, 95, 96, 97, 127, 128, 129, 191, 192, 193,
+                 255)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("extra", [0, 1, 200])
+@pytest.mark.parametrize("Sq", FLASH_EDGE_SQ)
+def test_flash_bf16_kernel_at_tile_edges(card, Sq, extra, D):
+    B, Hq, Hkv, Skv = 2, 4, 2, Sq + extra
+    q, k, v = _randn(card, Sq * 1000 + extra * 10 + D, (B, Hq, Sq, D),
+                     (B, Hkv, Skv, D), (B, Hkv, Skv, D), dtype=torch.bfloat16)
+    o = AK.flash_attention_cuda(q, k, v)
+    want = fa.attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert float((o.float() - want).abs().max()) <= ATTN_TOL[torch.bfloat16][3]
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=1, Hq=4, Hkv=2, Sq=1000, Skv=1000, D=128, window=300,
+         softcap=30.0),
+    dict(B=2, Hq=4, Hkv=4, Sq=1000, Skv=1000, D=64, window=129,
+         softcap=50.0),
+    dict(B=1, Hq=40, Hkv=8, Sq=4096, Skv=4096, D=128),
+])
+def test_flash_bf16_kernel_window_softcap_and_qwen3_heads(card, case):
+    c = dict(case)
+    B, Hq, Hkv, Sq, Skv, D = (c.pop(x) for x in ("B", "Hq", "Hkv", "Sq",
+                                                 "Skv", "D"))
+    q, k, v = _randn(card, Sq + D, (B, Hq, Sq, D), (B, Hkv, Skv, D),
+                     (B, Hkv, Skv, D), dtype=torch.bfloat16)
+    o = AK.flash_attention_cuda(q, k, v, **c)
+    want = fa.attention_ref(q, k, v, **c)
+    torch.cuda.synchronize()
+    assert float((o.float() - want).abs().max()) <= ATTN_TOL[torch.bfloat16][3]
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 4, 5, 8, 16])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 4096, 32768])
+def test_decode_bf16_kernel_groups_and_tile_edges(card, S, group, D):
+    B, Hkv = 4, 2
+    R = B * Hkv
+    q, k, v = _randn(card, S + group * 7 + D, (R, group, D), (R, S, D),
+                     (R, S, D), dtype=torch.bfloat16)
+    lens = np.random.default_rng(S + group).integers(1, S + 1, B)
+    lens[1] = 0                                   # one row of length 0
+    lens[2] = S                                   # one row at capacity
+    lt = torch.from_numpy(np.repeat(lens, Hkv).astype(np.int32)).to(card)
+    o, m, l = DK.decode_attention_cuda(q, k, v, lt)
+    po, pm, pl = da.decode_attention_ref(q, k, v, lt)
+    torch.cuda.synchronize()
+    to, tm, tl, _ = ATTN_TOL[torch.bfloat16]
+    assert float((o - po).abs().max()) <= to
+    assert float((m - pm).abs().max()) <= tm
+    assert float(((l - pl).abs() / pl.clamp_min(1.0)).max()) <= tl
+    dead = slice(Hkv, 2 * Hkv)
+    assert torch.all(o[dead] == 0) and torch.all(l[dead] == 0) \
+        and torch.all(m[dead] == -1e30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_are_deterministic_and_count_one_launch(card,
+                                                                  dtype):
+    """Two calls on the same inputs are bitwise equal (no atomics), and
+    each call counts exactly one launch, split or not."""
+    q, k, v = _randn(card, 7, (1, 8, 700, 128), (1, 2, 900, 128),
+                     (1, 2, 900, 128), dtype=dtype)
+    before = AK.launches()
+    a = AK.flash_attention_cuda(q, k, v, window=500)
+    assert AK.launches() == before + 1
+    b = AK.flash_attention_cuda(q, k, v, window=500)
+    torch.cuda.synchronize()
+    assert AK.launches() == before + 2 and torch.equal(a, b)
+    for S in (40, 20000):                        # unsplit, split
+        dq, dk, dv = _randn(card, S, (6, 5, 128), (6, S, 128), (6, S, 128),
+                            dtype=dtype)
+        lt = torch.full((6,), S - 3, dtype=torch.int32, device=card)
+        before = DK.launches()
+        first = DK.decode_attention_cuda(dq, dk, dv, lt)
+        assert DK.launches() == before + 1
+        second = DK.decode_attention_cuda(dq, dk, dv, lt)
+        torch.cuda.synchronize()
+        assert DK.launches() == before + 2
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_shared_memory_mirrors_equal_the_sources(card):
+    """The wrappers' shared-memory arithmetic equals what each kernel
+    source asks for, instantiation by instantiation."""
+    import ctypes
+    dlib = ctypes.CDLL(str(DK.build()))
+    flib = ctypes.CDLL(str(AK.build()))
+    bits = {torch.float32: 0, torch.bfloat16: 1}
+    for D in (32, 64, 128):
+        for dt in bits:
+            assert flib.flash_attention_smem_bytes(D, bits[dt]) \
+                == AK.smem_bytes(D, dt)
+            for kt in bits:
+                assert dlib.decode_attention_smem_bytes(
+                    D, bits[dt], bits[kt]) == DK.smem_bytes(D, dt, kt)
+    assert flib.flash_attention_smem_bytes(96, 1) == -1
