@@ -16,16 +16,18 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
    ``HMMA`` of the decode library in ``cuobjdump -sass`` (fails on 0; a
    toolkit without ``cuobjdump`` is reported on a line).
 3. Fused descent against its plain version: random packed prefixes (L in
-   1/2/4, step-only and mixed, P in 128/640/1664/4096, Q in
+   1/2/3/4, step-only and mixed, P in 128/640/1664/4096, Q in
    1/255/256/4097/65536); the kernel must equal ``fused_descent_torch`` on
-   the card bit for bit, step rows must equal the float64 walk and band
-   rows must contain it.
+   the card bit for bit, the engine's staged ``FusedDescent.descend`` must
+   equal the kernel, step rows must equal the float64 walk and band rows
+   must contain it.
 4. Candidate scoring against its plain version: C in 1/7/8/39/300, S in
-   1/127/128/4097/65536/65574/131072, W ~ U[16, 1e6], weights ~ U[0.5, 4],
-   under the affine coefficients of azure_ssd, azure_nfs, a 50%-hit
-   CachedProfile over azure_ssd and a p99 (w = 1) ObjectiveProfile over
-   azure_ssd; the kernel must match ``affine_scores_torch`` to rtol 1e-5
-   and the float64 oracle to rtol 3e-5.
+   1/127/128/4097/65536/65574/131072 (every S mod 4), W ~ U[16, 1e6],
+   weights ~ U[0.5, 4], under the affine coefficients of azure_ssd,
+   azure_nfs, a 50%-hit CachedProfile over azure_ssd and a p99 (w = 1)
+   ObjectiveProfile over azure_ssd; the kernel must match
+   ``affine_scores_torch`` to rtol 1e-5 and the float64 oracle to rtol
+   3e-5, and a second launch must equal the first bit for bit.
 5. The index-lookup kernels against their plain versions: step layers of
    P in 1/64/127/128/1000/4096, band layers of P in 1/10/300/4096,
    segmented step layers of P in 4097/20000/81000/823133, each at Q in
@@ -75,14 +77,17 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
    tests' cases, qwen3-14b's heads at Sq = Skv = 4096 and Sq < Skv, in
    bf16 and f32, and the bf16 kernel at its tile edges (Sq in
    1/63/64/65/95/96/97/127/128/129/191/192/193/255, Skv - Sq in 0/1/200,
-   D in 32/64/128) and with window and softcap together at 1,000 tokens.
+   D in 32/64/128) and with window and softcap together at 1,000 tokens;
+   decode with gemma2's heads (32/16 of 128), window 4,096 and softcap 50
+   at caches 1/4095/4097/32768, f32 and bf16, and its bf16 time at
+   B = 8 x 32768 against the bound over the 4,096 live keys.
    Limits: f32 at the JAX tests' own (flash 2e-5; decode 3e-5 on o, 1e-5
    on m, l relative 1e-5), with TF32 off for the plain versions; bf16
    2e-2.
 11. The LLM serving path, after the index phases with the card's memory
-   freed: the ``hbm`` profile's ℓ and B measured (4 KiB copies queued
-   back to back, 2 GiB copies; CUDA events) and held within 2x of the
-   profile; qwen3-14b at
+   freed: the ``h100_hbm`` profile's ℓ and B measured (4 KiB copies
+   queued back to back, 2 GiB copies; CUDA events) and held within 2x of
+   the profile; qwen3-14b at
    full width and depth in bf16, weights from ``init_params`` on the card;
    ``make_prefill_step`` at B = 1 x 4096 and B = 4 x 2048 (twice each);
    the port's ``launch.serve.run`` with 8 requests, batch 4, and the steps
@@ -92,21 +97,24 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
    decode step and prefill (device busy share).  Exactly 40 flash
    launches per prefill call and 40 decode launches per decode step, and
    no plain attention runs; then the page table of the loop's requests
-   tuned for ``hbm`` on the card.
-12. Numbers: sizes, build/generation times, per-stream qps, lookup wall,
-   descent seconds, roofline and hit rate; per tune its wall, sweep
+   tuned for ``h100_hbm`` on the card.
+12. Numbers: each phase's wall; sizes, build/generation times, per-stream
+   qps, lookup wall, descent seconds, roofline and hit rate; the wall per
+   call of the engine's descent and of the one library call inside it
+   (inside each pipelined stream and alone); per tune its wall, sweep
    seconds, stats and the device ranking's copy/kernel/readback split;
    the loop's walls and drift report; ``traverse_index`` lookups/s and
    batch walls; each kernel's time per launch beside its plain version,
-   its bound and, where one exists, a PyTorch yardstick; candidate
-   scoring's and the lookup kernels' times in the kernels line are taken
-   with the L2 flushed before each call; prefill tokens/s and wall,
-   decode tokens/s and step walls, and each attention kernel at the
-   path's shapes (and decode at B = 8, S = 32768) beside its plain
-   version, the ``scaled_dot_product_attention`` yardstick and its bound,
-   with its achieved TFLOP/s and GB/s, timed with CUDA events around
-   calls queued behind a device sleep (a CUPTI trace now and then loses
-   device records).
+   its bound and, where one exists, a PyTorch yardstick; every time in
+   the kernels line is taken with the L2 flushed before each call;
+   prefill tokens/s and wall, decode tokens/s and step walls, and each
+   attention kernel at the path's shapes (and decode at B = 8, S = 32768)
+   beside its plain version, the
+   ``scaled_dot_product_attention`` yardstick and its bound, with its
+   achieved TFLOP/s and GB/s.  The fused descent, candidate scoring and
+   the attention kernels are timed with CUDA events around calls queued
+   behind a device sleep, the lookup kernels from CUPTI traces (a trace
+   now and then loses device records).
 
 The second-to-last line is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -203,6 +211,11 @@ FLASH_WINDOWED = (
 )
 DECODE_GROUPS = (1, 4, 5, 8, 16)
 DECODE_EDGE_S = (1, 63, 64, 65, 4096, 32768)
+# gemma2's decode: its real heads (32 query, 16 kv, D = 128), window 4,096
+# and attention softcap 50 (configs/gemma2_27b.py), at caches below, at and
+# past the window
+WINDOW_ARCH = "gemma2-27b"
+WINDOW_CACHES = (1, 4095, 4097, 32768)
 # kernel vs plain: float32 at the JAX kernel tests' own limits (flash 2e-5,
 # decode 3e-5 on o and 1e-5 on m; l relative), bfloat16 at 2e-2
 ATTN_TOL = {"float32": {"flash": 2e-5, "o": 3e-5, "m": 1e-5, "l": 1e-5},
@@ -218,7 +231,7 @@ ECHO_TOL = 5e-2
 SHARE_STEPS = 5                  # decode steps traced for the busy share
 HBM_SMALL = 4096                 # bytes of the latency copy
 HBM_LARGE = 2 << 30              # bytes of the bandwidth copy
-HBM_FACTOR = 2.0                 # measured vs the "hbm" profile, at most
+HBM_FACTOR = 2.0                 # measured vs the "h100_hbm" profile, at most
 SLEEP_CYCLES = 100_000_000       # device sleep the timed calls queue behind
 QUEUED_CALLS = 20                # calls queued at once where a trace fails
 
@@ -275,7 +288,7 @@ def check_kernel(device, seed: int) -> float:
     rng = np.random.default_rng(seed)
     n_cases = 0
     max_err = 0
-    for L in (1, 2, 4):
+    for L in (1, 2, 3, 4):
         for mixed in (False, True):
             for P in (128, 640, 1664, 4096):
                 layers = random_prefix(rng, L, P, mixed)
@@ -299,6 +312,13 @@ def check_kernel(device, seed: int) -> float:
                     rlo, rhi = fused_descent_ref(layers, q)
                     klo = klo.cpu().numpy().astype(np.float64)
                     khi = khi.cpu().numpy().astype(np.float64)
+                    # the engine's staged path: the same windows
+                    slo, shi = mod.descend(q)
+                    if not (np.array_equal(slo, klo)
+                            and np.array_equal(shi, khi)):
+                        raise AssertionError(
+                            f"FusedDescent.descend != kernel at L={L} "
+                            f"mixed={mixed} P={P} Q={Q}")
                     for r in range(L):
                         if planes["kinds"][r] == 0:
                             ok = (np.array_equal(klo[r], rlo[r])
@@ -312,8 +332,9 @@ def check_kernel(device, seed: int) -> float:
                                 f" disagrees with the float64 walk at L={L} "
                                 f"mixed={mixed} P={P} Q={Q}")
                     n_cases += 1
-    log(f"kernel check: {n_cases} shapes, kernel == plain bit for bit, "
-        f"step rows == float64 walk, band rows contain it")
+    log(f"kernel check: {n_cases} shapes (L = 1-4), kernel == plain bit "
+        f"for bit, the staged FusedDescent.descend == kernel, step rows == "
+        f"float64 walk, band rows contain it")
     return float(max_err)
 
 
@@ -593,7 +614,8 @@ def score_profiles() -> dict:
 def check_score_case(W: np.ndarray, wt: np.ndarray, ell: float,
                      inv_bw: float, device, what: str) -> float:
     """The kernel on (W, wt) against the plain version (rtol 1e-5) and the
-    float64 oracle (rtol 3e-5) → the largest relative error to plain."""
+    float64 oracle (rtol 3e-5), and a second launch bit-equal to the first
+    → the largest relative error to plain."""
     import torch
 
     from repro_torch.kernels.candidate_score import (affine_scores,
@@ -604,8 +626,12 @@ def check_score_case(W: np.ndarray, wt: np.ndarray, ell: float,
     wtt = torch.from_numpy(np.ascontiguousarray(wt, dtype=np.float32)) \
         .to(device)
     got = affine_scores(Wt, wtt, ell, inv_bw)
+    again = affine_scores(Wt, wtt, ell, inv_bw)
     plain = affine_scores_torch(Wt, wtt, ell, inv_bw)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"candidate_score {what}: two launches on the "
+                             f"same input differ")
     got = got.cpu().numpy().astype(np.float64)
     plain = plain.cpu().numpy().astype(np.float64)
     rel = float(np.max(np.abs(got - plain) / np.abs(plain)))
@@ -635,17 +661,42 @@ def check_scores(device, seed: int) -> float:
                 n_cases += 1
     log(f"candidate_score check: {n_cases} cases, max rel err to plain "
         f"{max_rel:.3e} (limit {SCORE_RTOL_PLAIN}), all within "
-        f"{SCORE_RTOL_REF} of the float64 oracle")
+        f"{SCORE_RTOL_REF} of the float64 oracle; every second launch "
+        f"bit-equal to the first")
     return max_rel
 
 
-def kernel_numbers(kern, plain, n: int) -> dict:
-    """Device time per call from the CUPTI trace and wrapper time back to
-    back, for the kernel and its plain version, in milliseconds."""
-    return {"ms": device_ms_per_call(kern, n),
-            "plain_ms": device_ms_per_call(plain, n),
-            "call_ms": time_launches(kern, n, 15),
-            "plain_call_ms": time_launches(plain, n, 15)}
+def queued_numbers(fns: dict, n: int) -> tuple:
+    """Device time per call of each function of ``fns`` from CUDA events
+    around ``n`` calls queued behind a device sleep (no profiler trace):
+    L2-cold (a 128 MiB rewrite before each call, whose own queued time is
+    taken off) and back to back → ({name: cold ms}, {name: warm ms})."""
+    import torch
+    flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+    rewrite = queued_device_ms(flush.neg_, n)
+    cold = {k: queued_device_ms(f, n, before=flush.neg_) - rewrite
+            for k, f in fns.items()}
+    warm = {k: queued_device_ms(f, n) for k, f in fns.items()}
+    return cold, warm
+
+
+def timing(fn, rec: list):
+    """``fn`` itself, called through a wrapper that appends the wall of
+    each call to ``rec``."""
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            rec.append(time.perf_counter() - t0)
+    return timed
+
+
+def split_summary(rec: dict) -> dict:
+    """Each list's mean and median wall, in microseconds."""
+    return {k: {"mean_us": float(np.mean(v)) * 1e6,
+                "median_us": float(np.median(v)) * 1e6, "n": len(v)}
+            for k, v in rec.items()}
 
 
 def cold_device_ms(fn, n: int) -> float:
@@ -681,10 +732,12 @@ def serve_phase(args, device, card, max_err: float) -> dict:
     """Phase 6 and the fused descent's numbers → its kernels-line entry."""
     import torch
 
+    import repro_torch.serve.index_service as IS
     from repro_torch.api import ServeSpec
     from repro_torch.core import SerializedIndex, write_index
     from repro_torch.kernels.fused_descent import fused_descent_torch
     from repro_torch.kernels.fused_descent import kernel as K
+    from repro_torch.kernels.fused_descent import ops as FO
 
     if args.draws < DRAWS:
         log(f"reduced: {args.draws} mixture draws instead of {DRAWS}")
@@ -711,11 +764,24 @@ def serve_phase(args, device, card, max_err: float) -> dict:
         spec = ServeSpec(resident_layers=2, cache_bytes=(1 << 20, 8 << 20),
                          pipeline_depth=2)
         streams = make_streams(len(keys), args.seed, N_BATCHES, BATCH)
+        # the engine's own descent serves; each call of it, and of the one
+        # library call inside it, is timed around the real function
+        engine_descent = IS.fused_descent_with_backend
+        library_call = K.fused_descent_serve
+        served, reports, fused, splits = {}, {}, {}, {}
         K.reset_launches()                    # the serving path starts here
-        served, reports, fused = {}, {}, {}
-        for name, idx in streams.items():
-            served[name], reports[name], fused[name] = serve_stream(
-                path, keys, idx, spec, None, N_BATCHES)
+        try:
+            for name, idx in streams.items():
+                splits[name] = {"descent": [], "library_call": []}
+                IS.fused_descent_with_backend = timing(
+                    engine_descent, splits[name]["descent"])
+                K.fused_descent_serve = timing(
+                    library_call, splits[name]["library_call"])
+                served[name], reports[name], fused[name] = serve_stream(
+                    path, keys, idx, spec, None, N_BATCHES)
+        finally:
+            IS.fused_descent_with_backend = engine_descent
+            K.fused_descent_serve = library_call
         launches = K.launches()               # ... and ends here
         batches = sum(r["batches"] for r in reports.values())
         for name, r in reports.items():
@@ -724,6 +790,10 @@ def serve_phase(args, device, card, max_err: float) -> dict:
         assert launches >= batches, (launches, batches)
         for name, idx in streams.items():
             log(f"stream {name}: " + json.dumps(reports[name]))
+            log(f"descent inside the pipelined {name} stream (wall per "
+                f"call of fused_descent_with_backend and of the library "
+                f"call inside it, us; two calls a batch): "
+                + json.dumps(split_summary(splits[name])))
 
         for name, idx in streams.items():
             check_ranges(served[name], idx, name)
@@ -761,11 +831,30 @@ def serve_phase(args, device, card, max_err: float) -> dict:
             max_err = max(max_err, float(serve_err))
             assert serve_err == 0, \
                 f"serving batch {b}: kernel != plain ({serve_err})"
+        # the same descent alone, on the same batches, after the launch
+        # count was read
+        alone = {"descent": [], "library_call": []}
+        run = timing(FO.fused_descent_with_backend, alone["descent"])
+        K.fused_descent_serve = timing(library_call, alone["library_call"])
+        try:
+            for b in range(N_BATCHES):
+                _, _, used = run(None, keys[streams["uniform"][
+                    b * BATCH:(b + 1) * BATCH]], module=mod)
+                assert used == "cuda", f"batch {b} declined by the descent"
+        finally:
+            K.fused_descent_serve = library_call
+        log(f"descent alone on the uniform stream's batches (wall per "
+            f"call, us): " + json.dumps(split_summary(alone)))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    t = kernel_numbers(lambda: mod(qt),
-                       lambda: fused_descent_torch(mod.planes(), qt), 200)
+    # the plain version reads the layer kinds from the host, so that it
+    # queues its ops without a synchronisation
+    plain_planes = {**mod.planes(), "kinds": mod.kinds.cpu()}
+    cold, warm = queued_numbers(
+        {"ms": lambda: mod(qt),
+         "plain_ms": lambda: fused_descent_torch(plain_planes, qt)}, 50)
+    call_ms = time_launches(lambda: mod(qt), 200, 15)
     Q = BATCH
     n_band = int(kinds.sum())
     n_step = L - n_band
@@ -780,17 +869,18 @@ def serve_phase(args, device, card, max_err: float) -> dict:
     ops = Q * (L * math.ceil(math.log2(P + 1)) + 7 * n_band)
     bound_ms, bound_by = roofline_bound(nbytes, ops)
     log(f"fused_descent at serving shape (Q={Q}, L={L}, P={P}) on {card}: "
-        f"device {t['ms'] * 1e3:.3f} us/launch (plain torch "
-        f"{t['plain_ms'] * 1e3:.3f} us of device time per call); wrapper "
-        f"call back to back {t['call_ms'] * 1e3:.3f} us (plain torch "
-        f"{t['plain_call_ms'] * 1e3:.3f} us); bound {bound_ms * 1e3:.4f} us "
-        f"by {bound_by} ({nbytes} B, {ops} ops; {n_step} step + {n_band} "
-        f"band layers); {launches} launches on the serving path")
+        f"device time per call with the L2 flushed {cold['ms'] * 1e3:.3f} "
+        f"us (plain torch {cold['plain_ms'] * 1e3:.3f} us), back to back "
+        f"{warm['ms'] * 1e3:.3f} us (plain torch {warm['plain_ms'] * 1e3:.3f}"
+        f" us), queued CUDA events; wrapper call back to back "
+        f"{call_ms * 1e3:.3f} us; bound {bound_ms * 1e3:.4f} us by "
+        f"{bound_by} ({nbytes} B, {ops} ops; {n_step} step + {n_band} band "
+        f"layers); {launches} launches on the serving path")
     return {"name": "fused_descent", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
             "launches": launches, "max_abs_err": max_err,
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "ms": cold["ms"], "plain_ms": cold["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def resident_that_packs(design) -> int:
@@ -978,26 +1068,29 @@ def tune_phase(args, device, card, max_rel: float) -> tuple:
         # compute the same function; timed here, never used by the port
         return torch.addmv(base, Wt, wtt, alpha=inv_bw).div_(den)
 
-    t = kernel_numbers(kern, plain, 200)
-    warm_library_ms = device_ms_per_call(library, 200)
     # the tuner copies W to the card just before each launch, but 10.5 MB
     # of widths sit in the 50 MB L2 only while nothing else ran since; the
     # kernels line holds the L2-cold times against the device-memory bound
-    cold = {name: cold_device_ms(fn, 50) for name, fn in
-            (("ms", kern), ("plain_ms", plain), ("library_ms", library))}
+    # (queued CUDA events: a CUPTI trace now and then loses device rows)
+    cold, warm = queued_numbers({"ms": kern, "plain_ms": plain,
+                                 "library_ms": library}, QUEUED_CALLS)
+    call_ms = time_launches(kern, 200, 15)
+    from repro_torch.kernels.candidate_score.kernel import split_count
+    n_split = split_count(U, S, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     nbytes = 4 * U * S + 4 * S + 4 * U
     bound_ms, bound_by = roofline_bound(nbytes, 3 * U * S)
     log(f"candidate_score at the largest tuning shape (U={U}, S={S}, "
-        f"{prof.name}) on {card}: device time per call with the L2 flushed "
-        f"{cold['ms'] * 1e3:.3f} us (plain torch {cold['plain_ms'] * 1e3:.3f}"
-        f" us; torch.addmv + div {cold['library_ms'] * 1e3:.3f} us, two "
-        f"calls), back to back (L2-warm) {t['ms'] * 1e3:.3f} us (plain torch "
-        f"{t['plain_ms'] * 1e3:.3f} us; torch.addmv + div "
-        f"{warm_library_ms * 1e3:.3f} us); wrapper call back to back "
-        f"{t['call_ms'] * 1e3:.3f} us (plain torch "
-        f"{t['plain_call_ms'] * 1e3:.3f} us); bound {bound_ms * 1e3:.4f} us "
-        f"by {bound_by} ({nbytes} B, {3 * U * S} ops); {cs_launches} "
-        f"launches on the tuning path")
+        f"{prof.name}; {n_split} blocks a row) on {card}: device time per "
+        f"call with the L2 flushed {cold['ms'] * 1e3:.3f} us (plain torch "
+        f"{cold['plain_ms'] * 1e3:.3f} us; torch.addmv + div "
+        f"{cold['library_ms'] * 1e3:.3f} us, two calls), back to back "
+        f"(L2-warm) {warm['ms'] * 1e3:.3f} us (plain torch "
+        f"{warm['plain_ms'] * 1e3:.3f} us; torch.addmv + div "
+        f"{warm['library_ms'] * 1e3:.3f} us), queued CUDA events; wrapper "
+        f"call back to back {call_ms * 1e3:.3f} us; bound "
+        f"{bound_ms * 1e3:.4f} us by {bound_by} ({nbytes} B, {3 * U * S} "
+        f"ops); {cs_launches} launches on the tuning path")
     return {"name": "candidate_score", "route": "cuda",
             "source": SCORE_SOURCE, "replaces": SCORE_REPLACES,
             "launches": cs_launches, "max_abs_err": max_rel,
@@ -1439,9 +1532,10 @@ def alg1_phase(args, device, card, tuned: dict, gen1, errs: dict) -> list:
 # ---------------------------------------------------------------------------
 # phase 10: the attention kernels against their plain versions
 # ---------------------------------------------------------------------------
-def check_attention_kernels(device, seed: int) -> dict:
+def check_attention_kernels(device, seed: int, card: str) -> dict:
     """Every decode and flash case: kernel == plain version within
-    ATTN_TOL → the largest |kernel − plain| of the outputs per kernel."""
+    ATTN_TOL, then gemma2's windowed decode timed at a 32,768-key cache
+    → the largest |kernel − plain| of the outputs per kernel."""
     import torch
 
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
@@ -1513,6 +1607,7 @@ def check_attention_kernels(device, seed: int) -> dict:
                              f"group={group} D={D} S={S}")
                 n_dec += 1
                 del q, k, v, got, want
+    n_dec += check_windowed_decode(device, rng, randn, check_decode, card)
     n_fl = 0
     edges = [dict(B=2, Hq=4, Hkv=2, Sq=Sq, Skv=Sq + extra, D=D)
              for Sq in FLASH_EDGE_SQ for extra in FLASH_EDGE_EXTRA
@@ -1551,6 +1646,49 @@ def check_attention_kernels(device, seed: int) -> dict:
     return errs
 
 
+def check_windowed_decode(device, rng, randn, check_decode,
+                          card: str) -> int:
+    """gemma2's decode at its real heads, window and softcap, through
+    the CUDA-core kernel (float32) and the tensor-core kernel (bf16, its
+    queries scaled by 4 so the scores reach where the cap bends them), each
+    row length drawn from 1..S with one row of length 0 and one at S; then
+    the bf16 kernel timed at B = 8 x 32,768 against its bound over the
+    4,096 live keys → the number of cases."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_ref)
+    cfg = get_config(WINDOW_ARCH)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    win, cap = cfg.sliding_window, cfg.attn_softcap
+    n = 0
+    for S in WINDOW_CACHES:
+        for dt in (torch.float32, torch.bfloat16):
+            R, G = DECODE_B * Hkv, Hq // Hkv
+            q = randn((R, G, D), dt)
+            if dt == torch.bfloat16:
+                q = q * 4
+            k, v = randn((R, S, D), dt), randn((R, S, D), dt)
+            lens = rng.integers(1, S + 1, DECODE_B)
+            lens[0], lens[-1] = 0, S
+            lt = torch.from_numpy(np.repeat(lens, Hkv).astype(
+                np.int32)).to(device)
+            got = decode_attention_cuda(q, k, v, lt, window=win,
+                                        softcap=cap)
+            want = decode_attention_ref(q, k, v, lt, window=win,
+                                        softcap=cap)
+            torch.cuda.synchronize()
+            check_decode(got, want, str(dt).split(".")[-1],
+                         f"{WINDOW_ARCH} window={win} softcap={cap} S={S}")
+            n += 1
+            del q, k, v, got, want
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+    decode_numbers(8, WINDOW_CACHES[-1], [WINDOW_CACHES[-1]] * 8, cfg, card,
+                   device, gen, window=win, softcap=cap)
+    return n
+
+
 # ---------------------------------------------------------------------------
 # phase 11: the LLM serving path at qwen3-14b's full width and depth
 # ---------------------------------------------------------------------------
@@ -1559,8 +1697,10 @@ def queued_device_ms(fn, n: int, before=None) -> float:
     ``before()``, when given) from a CUDA-event pair around them, the
     calls queued behind a device sleep so the card reaches them only
     after the host has enqueued every one: no host gap is timed, and no
-    profiler trace is needed → milliseconds.  The sleep doubles until the
-    host's enqueue fits inside it."""
+    profiler trace is needed → milliseconds.  Until the host's enqueue
+    fits inside the sleep, the sleep doubles and the calls halve (a call
+    of many small ops can fill the card's launch queue, and the host then
+    waits for the sleep itself)."""
     import torch
     for _ in range(3):
         if before is not None:
@@ -1586,6 +1726,7 @@ def queued_device_ms(fn, n: int, before=None) -> float:
         if host_ms < s0.elapsed_time(s1):
             return e0.elapsed_time(e1) / n
         cycles *= 2
+        n = max(1, n // 2)
     raise AssertionError(f"the host's enqueue of {n} calls outran a "
                          f"{cycles // 2}-cycle sleep")
 
@@ -1670,13 +1811,8 @@ def attention_numbers(name: str, kern, plain, library, nbytes: int,
     call, whose own queued time is taken off) and back to back, beside its
     plain version, the SDPA yardstick and its bound → the kernels-line
     numbers."""
-    import torch
-    flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
-    rewrite = queued_device_ms(flush.neg_, n)
-    fns = {"ms": kern, "plain_ms": plain, "library_ms": library}
-    cold = {k: queued_device_ms(f, n, before=flush.neg_) - rewrite
-            for k, f in fns.items()}
-    warm = {k: queued_device_ms(f, n) for k, f in fns.items()}
+    cold, warm = queued_numbers({"ms": kern, "plain_ms": plain,
+                                 "library_ms": library}, n)
     bound_ms, bound_by = roofline_bound(nbytes, ops, BF16_OPS_PER_S)
     sec = cold["ms"] / 1e3
     log(f"{name} at {shape} on {card}: achieved {ops / sec / 1e12:.3f} "
@@ -1693,9 +1829,12 @@ def attention_numbers(name: str, kern, plain, library, nbytes: int,
 
 
 def decode_numbers(B: int, S: int, lens, cfg, card: str, device,
-                   gen) -> dict:
-    """The decode kernel on a (B, S) bf16 cache at qwen3-14b's heads, the
-    rows live up to ``lens``."""
+                   gen, window: int | None = None,
+                   softcap: float | None = None) -> dict:
+    """The decode kernel on a (B, S) bf16 cache at ``cfg``'s heads, the
+    rows live up to ``lens`` (their last ``window`` keys, when given), the
+    scores capped by ``softcap`` when given.  The SDPA yardstick takes
+    the same keys through a mask; it has no softcap."""
     import torch
     import torch.nn.functional as F
 
@@ -1710,19 +1849,28 @@ def decode_numbers(B: int, S: int, lens, cfg, card: str, device,
     lens = np.asarray(lens, dtype=np.int32)
     qg, kg, vg = q.reshape(R, G, D), k.reshape(R, S, D), v.reshape(R, S, D)
     lg = torch.from_numpy(np.repeat(lens, Hkv)).to(device)
-    mask = (torch.arange(S, device=device)[None, :]
-            < torch.from_numpy(lens).to(device)[:, None])[:, None, None, :]
-    live = int(lens.sum()) * Hkv                # (row, key) pairs read
+    pos = torch.arange(S, device=device)[None, :]
+    lt = torch.from_numpy(lens).to(device)[:, None]
+    mask = pos < lt
+    first = np.maximum(lens - (S if window is None else window), 0)
+    if window is not None:
+        mask &= pos >= lt - window
+    mask = mask[:, None, None, :]
+    live = int((lens - first).sum()) * Hkv      # (row, key) pairs read
     nbytes = 2 * live * D * 2 + R * G * D * 2 + R * G * (D + 2) * 4
     ops = 4 * G * D * live
+    opts = dict(window=window, softcap=softcap)
     return attention_numbers(
-        "decode_attention", lambda: decode_attention_cuda(qg, kg, vg, lg),
-        lambda: decode_attention_ref(qg, kg, vg, lg),
+        "decode_attention",
+        lambda: decode_attention_cuda(qg, kg, vg, lg, **opts),
+        lambda: decode_attention_ref(qg, kg, vg, lg, **opts),
         lambda: F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
         nbytes, ops, 50, card,
-        f"B={B}, S={S} (lengths {int(lens.min())}..{int(lens.max())}), "
-        f"Hq={Hq}, Hkv={Hkv}, D={D}, bf16")
+        f"B={B}, S={S} (lengths {int(lens.min())}..{int(lens.max())}"
+        + ("" if window is None else f", window {window}")
+        + ("" if softcap is None else f", softcap {softcap}")
+        + f"), Hq={Hq}, Hkv={Hkv}, D={D}, bf16")
 
 
 def flash_numbers(B: int, S: int, cfg, card: str, device, gen) -> dict:
@@ -1757,7 +1905,7 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
     """Phase 11: qwen3-14b at full width and depth in bf16 on the card:
     prefill through ``make_prefill_step``, the port's serving loop, the
     same prompt through decode against prefill, the page table on the
-    ``hbm`` profile, then each attention kernel's numbers → the two
+    ``h100_hbm`` profile, then each attention kernel's numbers → the two
     kernels-line entries."""
     import torch
 
@@ -1773,8 +1921,8 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
     from repro_torch.serve.kvcache import PagedKVCache
 
     ell, bw = measure_hbm(device)
-    hbm = PROFILES["hbm"]
-    log(f"hbm on {card}: measured latency {ell * 1e6:.3f} us (per 4 KiB "
+    hbm = PROFILES["h100_hbm"]
+    log(f"h100_hbm on {card}: measured latency {ell * 1e6:.3f} us (per 4 KiB "
         f"copy, queued), bandwidth {bw:.6e} B/s (2 GiB copies); profile "
         f"constants {hbm.latency * 1e6:.3f} us, {hbm.bandwidth:.6e} B/s")
 
@@ -1916,13 +2064,13 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
     for i, p in enumerate(queue):
         pool.add_sequence(i)
         pool.append_tokens(i, len(p) + launcher.OUT_TOKENS)
-    cost = pool.modeled_lookup_cost("hbm", device=device)
-    log(f"page table of {SERVE_REQUESTS} requests tuned for hbm: "
+    cost = pool.modeled_lookup_cost("h100_hbm", device=device)
+    log(f"page table of {SERVE_REQUESTS} requests tuned for h100_hbm: "
         f"{json.dumps(cost)}")
     if not (hbm.latency / HBM_FACTOR <= ell <= hbm.latency * HBM_FACTOR
             and hbm.bandwidth / HBM_FACTOR <= bw
             <= hbm.bandwidth * HBM_FACTOR):
-        raise AssertionError(f"the hbm profile ({hbm.latency:.3e} s, "
+        raise AssertionError(f"the h100_hbm profile ({hbm.latency:.3e} s, "
                              f"{hbm.bandwidth:.3e} B/s) is more than "
                              f"{HBM_FACTOR}x off the card's ({ell:.3e} s, "
                              f"{bw:.3e} B/s)")
@@ -1971,20 +2119,27 @@ def main(argv=None) -> int:
     card = card_info()
     log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     t_start = time.perf_counter()
-    build_all()                                           # phase 2
-    fd_err = check_kernel(device, args.seed)              # phase 3
-    cs_err = check_scores(device, args.seed)              # phase 4
-    il_err = check_lookup_kernels(device, args.seed)      # phase 5
-    attn_err = check_attention_kernels(device, args.seed)  # phase 10
-    fused = serve_phase(args, device, card, fd_err)       # phase 6
-    scores, tuned = tune_phase(args, device, card, cs_err)  # phase 7
-    gen1 = loop_phase(args, tuned)                        # phase 8
-    lookups = alg1_phase(args, device, card, tuned, gen1, il_err)  # phase 9
+
+    def phase(n: int, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        log(f"phase {n} wall: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    phase(2, build_all)
+    fd_err = phase(3, check_kernel, device, args.seed)
+    cs_err = phase(4, check_scores, device, args.seed)
+    il_err = phase(5, check_lookup_kernels, device, args.seed)
+    attn_err = phase(10, check_attention_kernels, device, args.seed, card)
+    fused = phase(6, serve_phase, args, device, card, fd_err)
+    scores, tuned = phase(7, tune_phase, args, device, card, cs_err)
+    gen1 = phase(8, loop_phase, args, tuned)
+    lookups = phase(9, alg1_phase, args, device, card, tuned, gen1, il_err)
     del tuned, gen1                     # the card's memory, freed first
     gc.collect()
     torch.cuda.empty_cache()
-    attention = llm_phase(args, device, card, attn_err)   # phase 11
-    torch.cuda.synchronize()
+    attention = phase(11, llm_phase, args, device, card, attn_err)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [fused, scores, *lookups, *attention]}))
     print(card)

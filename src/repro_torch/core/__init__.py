@@ -30,8 +30,9 @@ from .registry import (BUILDER_FAMILIES, MULTI_LAM_FAMILIES,
 from .lookup import (LookupResult, last_mile_search, lookup_batch,
                      verify_lookup)
 from .serialize import (IndexFileMeta, LayerMeta, SerializedIndex,
-                        lookup_serialized, materialize_design, parse_meta,
-                        read_meta_path, write_index)
+                        lookup_serialized, materialize_design, page_span,
+                        parse_meta, read_meta_path, record_aligned_range,
+                        write_index)
 from .storage import (PROFILES, AffineProfile, AffineUniformProfile,
                       CachedProfile, DistributionalProfile, MeasuredProfile,
                       ObjectiveProfile, StorageProfile, affine_coefficients,

@@ -529,10 +529,18 @@ PROFILES = {
     "azure_hdd": AffineProfile(2e-3,   60e6,   name="azure_hdd"),  # 500 IOPS, 60 MB/s
     # host DRAM: the block cache's hit cost
     "host_dram": _DEFAULT_CACHE,
-    # the card's memory, for page tables kept on the device (the JAX
-    # package's "hbm" is a TPU figure): ℓ is the device time per 4 KiB
-    # device-to-device copy of 200 queued back to back, B the bytes copied
-    # per second by 2 GiB copies, both from CUDA events in chip_smoke.py's
-    # measure_hbm on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-    "hbm": AffineProfile(HBM_LATENCY_S, HBM_BYTES_PER_S, name="hbm"),
+    # the JAX package's named tiers, carried verbatim: constants that files
+    # and specs may name, not measurements of the port
+    "object_store": AffineProfile(80e-3, 250e6, name="object_store"),
+    "hbm":          AffineProfile(1e-6,  819e9, name="hbm"),
+    "vmem":         AffineProfile(30e-9, 10e12, name="vmem"),
+    "ici":          AffineProfile(1e-6,  50e9,  name="ici"),
+    "dcn":          AffineProfile(20e-6, 12.5e9, name="dcn"),
+    # the card's memory, for page tables kept on the device: ℓ is the
+    # device time per 4 KiB device-to-device copy of 200 queued back to
+    # back, B the bytes copied per second by 2 GiB copies, both from CUDA
+    # events in chip_smoke.py's measure_hbm on an NVIDIA H100 80GB HBM3 at
+    # a 700 W power limit
+    "h100_hbm": AffineProfile(HBM_LATENCY_S, HBM_BYTES_PER_S,
+                              name="h100_hbm"),
 }

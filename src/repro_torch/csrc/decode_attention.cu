@@ -12,14 +12,21 @@
 // with s_j = (q · k_j) * scale for j < kv_length[r], m = max_j s_j,
 // l = sum_j exp(s_j - m), o = sum_j exp(s_j - m) v_j / max(l, 1e-30).
 // Arithmetic is float32 whatever the storage type (bf16 or f32, for q and
-// for k/v independently).  A row of length 0 gives o = 0, m = -1e30, l = 0,
+// for k/v independently).  Two options of the JAX package's
+// decode_attention_jnp (gemma2's local layers and attention logit cap):
+// softcap > 0 replaces each scaled score by softcap * tanh(s / softcap)
+// before the softmax, and window >= 0 keeps only the keys
+// j > kv_length - 1 - window live (window < 0: none).  A windowed row's
+// live keys are [max(kv_length - window, 0), kv_length): its splits and
+// first tile start there, so the kernel streams those keys and no others.
+// A row of length 0 gives o = 0, m = -1e30, l = 0,
 // as the TPU kernel does (it skips every block); such a row weighs 0 in a
 // combination of partials.  Masked scores are -1e30, not -inf, and their
 // probabilities 0, so no NaN can arise.
 //
 // Flash-decoding, both kernels: the grid is (n_split, R).  Block (i, r)
-// takes the i-th of n_split equal chunks of [0, kv_length[r]) (rounded up
-// to the 64-key tile), so every split carries work whatever the length; a
+// takes the i-th of n_split equal chunks of the row's live keys (rounded
+// up to the 64-key tile), so every split carries work whatever the length; a
 // split that starts past the row's length writes the empty triple and
 // exits at once.  With n_split > 1 each block writes its partial triple
 // to scratch and a second kernel of the same launch combines them per row
@@ -83,6 +90,22 @@ __device__ __forceinline__ void widen(const uint4& raw, float* dst) {
     for (int i = 0; i < (int)(16 / sizeof(T)); ++i) dst[i] = to_f(e[i]);
 }
 
+// the keys [start, end) of split `split` of a row of length len: the live
+// span [max(len - window, 0), len) (all of [0, len) for window < 0) cut into
+// n_split chunks of whole 64-key tiles
+__device__ __forceinline__ void split_span(int len, int window, int n_split,
+                                           int split, int& start, int& end) {
+    const int lo = window >= 0 ? max(len - window, 0) : 0;
+    int chunk = (len - lo + n_split - 1) / n_split;
+    chunk = (chunk + TK - 1) / TK * TK;
+    start = lo + split * chunk;
+    end = min(start + chunk, len);
+}
+
+__device__ __forceinline__ float cap_score(float s, float softcap) {
+    return softcap > 0.0f ? softcap * tanhf(s / softcap) : s;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -103,7 +126,8 @@ __global__ void __launch_bounds__(THREADS)
 decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                         const TKV* __restrict__ v,
                         const int* __restrict__ kv_length, int group, int S,
-                        int n_split, float scale, float* __restrict__ o_out,
+                        int n_split, float scale, int window, float softcap,
+                        float* __restrict__ o_out,
                         float* __restrict__ m_out, float* __restrict__ l_out) {
     constexpr int KS = D + 4;
     constexpr int VEC = 16 / sizeof(TKV);            // elements per 16 B
@@ -125,11 +149,8 @@ decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const int split = blockIdx.x;
     const int r = blockIdx.y;
     const int R = gridDim.y;
-    const int len = kv_length[r];
-    int chunk = (len + n_split - 1) / n_split;
-    chunk = (chunk + TK - 1) / TK * TK;
-    const int start = split * chunk;
-    const int end = min(start + chunk, len);
+    int start, end;
+    split_span(kv_length[r], window, n_split, split, start, end);
 
     // output slot: the final arrays when unsplit, else this split's partial
     const size_t orow = (size_t)split * R + r;
@@ -220,7 +241,7 @@ decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         }
 #pragma unroll
         for (int gi = 0; gi < MAXG / 2; ++gi) {
-            s[gi] = live ? s[gi] : NEG_INF;
+            s[gi] = live ? cap_score(s[gi], softcap) : NEG_INF;
             const float mx = warp_max(s[gi]);
             if (lane == 0) red_s[warp * (MAXG / 2) + gi] = mx;
         }
@@ -390,8 +411,8 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
                             const int* __restrict__ kv_length, int group,
-                            int S, int n_split, float scale,
-                            float* __restrict__ o_out,
+                            int S, int n_split, float scale, int window,
+                            float softcap, float* __restrict__ o_out,
                             float* __restrict__ m_out,
                             float* __restrict__ l_out) {
     using L = MmaSmem<D>;
@@ -403,11 +424,8 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
 
     const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
     const int split = blockIdx.x, r = blockIdx.y, R = gridDim.y;
-    const int len = kv_length[r];
-    int chunk = (len + n_split - 1) / n_split;
-    chunk = (chunk + MMA_TK - 1) / MMA_TK * MMA_TK;
-    const int start = split * chunk;
-    const int end = min(start + chunk, len);
+    int start, end;
+    split_span(kv_length[r], window, n_split, split, start, end);
 
     // output slot: the final arrays when unsplit, else this split's partial
     const size_t orow = (size_t)split * R + r;
@@ -496,15 +514,17 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
             mma16816(s1, qa[ks], b[2], b[3]);
         }
 
-        // scale, the length mask, the online softmax (rows h0, h0 + 8)
+        // scale, the cap, the length mask, the online softmax (rows h0,
+        // h0 + 8)
         const int kb = start + i * MMA_TK + warp * MMA_KW + c2;
         const bool lv[4] = {kb < end, kb + 1 < end, kb + 8 < end,
                             kb + 9 < end};
         float x[8];                       // (row, key) in s0/s1 order
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            x[e] = lv[(e & 1)] ? s0[e] * scale : NEG_INF;
-            x[4 + e] = lv[2 + (e & 1)] ? s1[e] * scale : NEG_INF;
+            x[e] = lv[(e & 1)] ? cap_score(s0[e] * scale, softcap) : NEG_INF;
+            x[4 + e] = lv[2 + (e & 1)] ? cap_score(s1[e] * scale, softcap)
+                                       : NEG_INF;
         }
         float mx0 = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[4], x[5]));
         float mx1 = fmaxf(fmaxf(x[2], x[3]), fmaxf(x[6], x[7]));
@@ -610,6 +630,7 @@ template <typename TQ, typename TKV, int D, typename Kern>
 static int launch_kernel(Kern kern, const void* q, const void* k,
                          const void* v, const int* kv_length, int R,
                          int group, int S, int n_split, float scale,
+                         int window, float softcap,
                          float* o, float* m, float* l, float* o_part,
                          float* m_part, float* l_part, cudaStream_t stream) {
     const int smem = KernelSmem<TQ, TKV, D>::BYTES;
@@ -619,7 +640,8 @@ static int launch_kernel(Kern kern, const void* q, const void* k,
     const bool split = n_split > 1;
     kern<<<dim3(n_split, R), THREADS, smem, stream>>>(
         (const TQ*)q, (const TKV*)k, (const TKV*)v, kv_length, group, S,
-        n_split, scale, split ? o_part : o, split ? m_part : m,
+        n_split, scale, window, softcap, split ? o_part : o,
+        split ? m_part : m,
         split ? l_part : l);
     err = cudaGetLastError();
     if (err != cudaSuccess || !split) return (int)err;
@@ -632,39 +654,45 @@ static int launch_kernel(Kern kern, const void* q, const void* k,
 template <typename TQ, typename TKV, int D>
 static int launch_typed(const void* q, const void* k, const void* v,
                         const int* kv_length, int R, int group, int S,
-                        int n_split, float scale, float* o, float* m,
+                        int n_split, float scale, int window, float softcap,
+                        float* o, float* m,
                         float* l, float* o_part, float* m_part,
                         float* l_part, cudaStream_t stream) {
     if constexpr (std::is_same<TQ, bf16>::value
                   && std::is_same<TKV, bf16>::value)
         return launch_kernel<TQ, TKV, D>(
             decode_attention_mma_kernel<D>, q, k, v, kv_length, R, group, S,
-            n_split, scale, o, m, l, o_part, m_part, l_part, stream);
+            n_split, scale, window, softcap, o, m, l, o_part, m_part, l_part,
+            stream);
     else
         return launch_kernel<TQ, TKV, D>(
             decode_attention_fma_kernel<TQ, TKV, D>, q, k, v, kv_length, R,
-            group, S, n_split, scale, o, m, l, o_part, m_part, l_part,
-            stream);
+            group, S, n_split, scale, window, softcap, o, m, l, o_part,
+            m_part, l_part, stream);
 }
 
 template <typename TQ, typename TKV>
 static int launch_dim(int D, const void* q, const void* k, const void* v,
                       const int* kv_length, int R, int group, int S,
-                      int n_split, float scale, float* o, float* m, float* l,
+                      int n_split, float scale, int window, float softcap,
+                      float* o, float* m, float* l,
                       float* o_part, float* m_part, float* l_part,
                       cudaStream_t stream) {
     switch (D) {
     case 32:
         return launch_typed<TQ, TKV, 32>(q, k, v, kv_length, R, group, S,
-                                         n_split, scale, o, m, l, o_part,
+                                         n_split, scale, window, softcap, o,
+                                         m, l, o_part,
                                          m_part, l_part, stream);
     case 64:
         return launch_typed<TQ, TKV, 64>(q, k, v, kv_length, R, group, S,
-                                         n_split, scale, o, m, l, o_part,
+                                         n_split, scale, window, softcap, o,
+                                         m, l, o_part,
                                          m_part, l_part, stream);
     case 128:
         return launch_typed<TQ, TKV, 128>(q, k, v, kv_length, R, group, S,
-                                          n_split, scale, o, m, l, o_part,
+                                          n_split, scale, window, softcap, o,
+                                          m, l, o_part,
                                           m_part, l_part, stream);
     default:
         return (int)cudaErrorInvalidValue;
@@ -674,13 +702,15 @@ static int launch_dim(int D, const void* q, const void* k, const void* v,
 // C entry point, bound with ctypes.  All pointers are device pointers on
 // the stream's device; the wrapper (kernels/decode_attention/kernel.py) has
 // checked shapes, types (q_bf16 / kv_bf16: 1 for bfloat16, 0 for float32),
-// contiguity, 16-byte alignment, group <= 16 and D in {32, 64, 128}.  The
+// contiguity, 16-byte alignment, group <= 16 and D in {32, 64, 128}
+// (window < 0 and softcap <= 0 mean none).  The
 // partial buffers hold n_split * R rows and are read only when
 // n_split > 1.  Returns cudaGetLastError().
 extern "C" int decode_attention_launch(
         const void* q, const void* k, const void* v, const void* kv_length,
-        int R, int group, int S, int D, int n_split, float scale, int q_bf16,
-        int kv_bf16, void* o, void* m, void* l, void* o_part, void* m_part,
+        int R, int group, int S, int D, int n_split, float scale, int window,
+        float softcap, int q_bf16, int kv_bf16, void* o, void* m, void* l,
+        void* o_part, void* m_part,
         void* l_part, void* stream) {
     const int* len = (const int*)kv_length;
     float *fo = (float*)o, *fm = (float*)m, *fl = (float*)l;
@@ -688,18 +718,19 @@ extern "C" int decode_attention_launch(
     cudaStream_t st = (cudaStream_t)stream;
     if (q_bf16 && kv_bf16)
         return launch_dim<__nv_bfloat16, __nv_bfloat16>(
-            D, q, k, v, len, R, group, S, n_split, scale, fo, fm, fl, po, pm,
-            pl, st);
+            D, q, k, v, len, R, group, S, n_split, scale, window, softcap, fo,
+            fm, fl, po, pm, pl, st);
     if (q_bf16)
         return launch_dim<__nv_bfloat16, float>(
-            D, q, k, v, len, R, group, S, n_split, scale, fo, fm, fl, po, pm,
-            pl, st);
+            D, q, k, v, len, R, group, S, n_split, scale, window, softcap, fo,
+            fm, fl, po, pm, pl, st);
     if (kv_bf16)
         return launch_dim<float, __nv_bfloat16>(
-            D, q, k, v, len, R, group, S, n_split, scale, fo, fm, fl, po, pm,
-            pl, st);
+            D, q, k, v, len, R, group, S, n_split, scale, window, softcap, fo,
+            fm, fl, po, pm, pl, st);
     return launch_dim<float, float>(D, q, k, v, len, R, group, S, n_split,
-                                    scale, fo, fm, fl, po, pm, pl, st);
+                                    scale, window, softcap, fo, fm, fl, po,
+                                    pm, pl, st);
 }
 
 // Dynamic shared memory of one block of the kernel a type pair takes at

@@ -8,8 +8,11 @@ and ``<name>_error_string``.  :class:`CudaLibrary` compiles one source by
 hand with ``nvcc`` for ``sm_90a`` into a shared library at first use, into
 ``build/repro_torch/<hash>/`` of the checkout — the hash covers the source
 and the flags, so an edited source rebuilds — and loads it with
-``ctypes``.  A failed build raises with nvcc's log; there is no fallback.
-Nothing here touches the card or the compiler at import.
+``ctypes.CDLL``: a call releases the GIL, so while the fused descent's
+serving entry waits for the card the serving engine's other threads (its
+numpy disk walk, its second descent) run on.  A failed build raises with
+nvcc's log; there is no fallback.  Nothing here touches the card or the
+compiler at import.
 """
 from __future__ import annotations
 
@@ -66,16 +69,20 @@ class CudaLibrary:
 
     ``argtypes`` are the C entry point's ctypes argument types (pointers
     and the stream as ``c_void_p``, ints as ``c_int``, floats as
-    ``c_float``).  :meth:`launch` calls the entry point on PyTorch's
-    current stream of ``device``, raises on a CUDA error and counts the
-    launch; nothing else counts.
+    ``c_float``); ``entries`` maps the suffix of each further entry point
+    (``<name>_<suffix>``, each launching the kernel once) to its argument
+    types.  :meth:`launch` calls an entry point on PyTorch's current
+    stream of ``device``, raises on a CUDA error and counts the launch;
+    nothing else counts.
     """
 
-    def __init__(self, name: str, argtypes, extra_flags=()):
+    def __init__(self, name: str, argtypes, extra_flags=(), entries=None):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.flags = NVCC_FLAGS + tuple(extra_flags)
         self.argtypes = list(argtypes)
+        self.entries = {"launch": self.argtypes,
+                        **{k: list(v) for k, v in (entries or {}).items()}}
         self.build_log = ""   # nvcc's output of the build this process ran
         self._mu = threading.Lock()
         self._lib = None
@@ -117,9 +124,10 @@ class CudaLibrary:
                                        f"{' '.join(cmd)}\n{self.build_log}")
                 os.replace(tmp, out)    # atomic: no reader sees a torn .so
             lib = ctypes.CDLL(str(out))
-            fn = getattr(lib, f"{self.name}_launch")
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
+            for suffix, argtypes in self.entries.items():
+                fn = getattr(lib, f"{self.name}_{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             err = getattr(lib, f"{self.name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
@@ -128,16 +136,26 @@ class CudaLibrary:
             return out
 
     # -- launch ------------------------------------------------------------
-    def launch(self, device: torch.device, *args) -> None:
-        """Build if needed, then call ``<name>_launch(*args, stream)`` on
-        the current stream of ``device``."""
+    def launch(self, device: torch.device, *args, entry: str = "launch",
+               declined: int | None = None) -> bool:
+        """Build if needed, then call ``<name>_<entry>(*args, stream)`` on
+        the current stream of ``device`` → True.  An entry point may
+        decline its input without launching by returning ``declined``:
+        then → False, and nothing is counted."""
         self.build()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = getattr(self._lib, f"{self.name}_launch")(*args, stream)
+        here = torch.cuda.current_device()
+        if device.index is not None and device.index != here:
+            with torch.cuda.device(device):     # launch in its context
+                return self.launch(device, *args, entry=entry,
+                                   declined=declined)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(self._lib, f"{self.name}_{entry}")(*args, stream)
+        if declined is not None and err == declined:
+            return False
         if err != 0:
             msg = getattr(self._lib, f"{self.name}_error_string")(err)
             raise RuntimeError(f"{self.name} launch failed: CUDA error "
                                f"{err} ({msg.decode()})")
         with self._mu:
             self._launches += 1
+        return True

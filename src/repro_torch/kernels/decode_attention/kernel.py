@@ -24,7 +24,7 @@ from .._cuda import CudaLibrary
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIB = CudaLibrary(
     "decode_attention",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I,
      _P, _P, _P, _P, _P, _P, _P])
 launches = LIB.launches
 reset_launches = LIB.reset_launches
@@ -71,10 +71,11 @@ def split_count(rows: int, S: int, sms: int) -> int:
     """Blocks per row: one wave of :data:`BLOCKS_PER_SM` blocks on each of
     ``sms`` SMs shared over ``rows`` rows (each row's live length is cut
     into that many chunks), at least one, and no more than the 64-key
-    tiles of the cache's capacity ``S``.  A pure function: the wrapper
-    cannot read the rows' lengths without a synchronisation."""
+    tiles of ``S``, the most keys a row can have live (the cache's
+    capacity, or the window where that is smaller).  A pure function: the
+    wrapper cannot read the rows' lengths without a synchronisation."""
     want = max(1, BLOCKS_PER_SM * sms // rows)
-    return min(want, -(-S // TILE))
+    return min(want, max(1, -(-S // TILE)))
 
 
 def _sms(device: torch.device) -> int:
@@ -86,13 +87,17 @@ def _sms(device: torch.device) -> int:
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_length: torch.Tensor,
-                          scale: float | None = None):
+                          scale: float | None = None, *,
+                          window: int | None = None,
+                          softcap: float | None = None):
     """Launch the kernel: q (R, group, D), k/v (R, S, D), each contiguous
     float32 or bfloat16 on one CUDA device (k and v of one type),
     kv_length (R,) int32 there → (o (R, group, D), m (R, group),
     l (R, group)) float32; :func:`split_count` blocks share each row's
-    live length, and :func:`kernel_path` names the kernel the types take.
-    Raises on anything the kernel does not take."""
+    live length (the last ``window`` keys of it, when given), and
+    :func:`kernel_path` names the kernel the types take.  ``softcap``
+    caps the scaled scores at ``softcap·tanh(s/softcap)``.  Raises on
+    anything the kernel does not take."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs a CUDA tensor, "
@@ -122,8 +127,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not kv_length.is_contiguous():
         raise ValueError(f"kv_length must be a contiguous ({R},) int32 "
                          f"tensor on {dev}")
+    if window is not None and int(window) < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if softcap is not None and not float(softcap) > 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    n_split = split_count(R, S, _sms(dev))
+    live = S if window is None else min(S, int(window))
+    n_split = split_count(R, live, _sms(dev))
     o = torch.empty((R, G, D), dtype=torch.float32, device=dev)
     m = torch.empty((R, G), dtype=torch.float32, device=dev)
     l = torch.empty((R, G), dtype=torch.float32, device=dev)
@@ -136,6 +146,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         parts = (o.data_ptr(), m.data_ptr(), l.data_ptr())   # unread
     LIB.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                kv_length.data_ptr(), R, G, S, D, n_split, scale,
+               -1 if window is None else int(window),
+               0.0 if softcap is None else float(softcap),
                _DTYPES[q.dtype], _DTYPES[k.dtype], o.data_ptr(),
                m.data_ptr(), l.data_ptr(), *parts)
     return o, m, l

@@ -17,23 +17,30 @@ from . import kernel, ref
 
 def decode_attention_folded(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, kv_length: torch.Tensor,
-                            scale: float | None = None):
+                            scale: float | None = None, *,
+                            window: int | None = None,
+                            softcap: float | None = None):
     """The folded layout (q (R, group, D), k/v (R, S, D), kv_length (R,))
     → the partial triple: the kernel on a CUDA device, the plain version
-    on the CPU."""
+    on the CPU.  ``window`` keeps the keys ``j > kv_length − 1 − window``;
+    ``softcap`` caps the scaled scores at ``softcap·tanh(s/softcap)``."""
     if q.device.type == "cuda":
-        return kernel.decode_attention_cuda(q, k, v, kv_length, scale)
+        return kernel.decode_attention_cuda(q, k, v, kv_length, scale,
+                                            window=window, softcap=softcap)
     if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, kv_length, scale)
+        return ref.decode_attention_ref(q, k, v, kv_length, scale,
+                                        window=window, softcap=softcap)
     raise ValueError(f"decode attention runs on CUDA or the CPU, "
                      f"not {q.device}")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_length: torch.Tensor | None = None, *,
-                     scale: float | None = None):
+                     scale: float | None = None, window: int | None = None,
+                     softcap: float | None = None):
     """q (B, Hq, D); k/v (B, Hkv, S, D); kv_length (B,) int32 (default:
-    S) → partial triple (o (B, Hq, D), m (B, Hq), l (B, Hq)), float32."""
+    S) → partial triple (o (B, Hq, D), m (B, Hq), l (B, Hq)), float32;
+    ``window`` and ``softcap`` as in :func:`decode_attention_folded`."""
     B, Hq, D = q.shape
     _, Hkv, S, _ = k.shape
     if kv_length is None:
@@ -44,7 +51,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kg = k.reshape(B * Hkv, S, D).contiguous()
     vg = v.reshape(B * Hkv, S, D).contiguous()
     lg = kv_length.to(torch.int32).repeat_interleave(Hkv)
-    o, m, l = decode_attention_folded(qg, kg, vg, lg, scale)
+    o, m, l = decode_attention_folded(qg, kg, vg, lg, scale, window=window,
+                                      softcap=softcap)
     return o.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
 
 

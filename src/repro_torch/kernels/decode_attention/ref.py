@@ -9,7 +9,10 @@ heads)::
     m — running max of the live scores
     l — normalizer Σ_j exp(s_j − m)
 
-A row of length 0 gives ``o = 0, m = −1e30, l = 0``, as the TPU kernel
+With ``softcap`` the scaled scores become ``softcap·tanh(s/softcap)``, and
+with ``window`` only keys ``j > kv_length − 1 − window`` stay live, as the
+JAX package's ``decode_attention_jnp`` (gemma2's local layers and logit
+cap).  A row of length 0 gives ``o = 0, m = −1e30, l = 0``, as the TPU kernel
 ``decode_attention_pallas`` does (it skips every block).  The JAX
 package's ``decode_attention_ref`` masks every score of such a row instead
 and returns ``l = S`` and ``o = mean(v)``; either row weighs 0 in
@@ -26,7 +29,9 @@ NEG_INF = -1e30
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kv_length: torch.Tensor, scale: float | None = None):
+                         kv_length: torch.Tensor, scale: float | None = None,
+                         *, window: int | None = None,
+                         softcap: float | None = None):
     """q (R, group, D); k/v (R, S, D) of any float type; kv_length (R,)
     int32 → (o (R, group, D), m (R, group), l (R, group)), float32."""
     R, G, D = q.shape
@@ -34,8 +39,14 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     qf = q.float() * scale
     s = torch.einsum("rgd,rsd->rgs", qf, k.float())
-    dead = (torch.arange(S, device=q.device)[None, :]
-            >= kv_length.to(q.device)[:, None])[:, None, :]      # (R, 1, S)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)[None, :]
+    length = kv_length.to(q.device)[:, None]
+    dead = pos >= length
+    if window is not None:
+        dead |= pos <= length - 1 - window
+    dead = dead[:, None, :]                                        # (R, 1, S)
     s = s.masked_fill(dead, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None]).masked_fill(dead, 0.0)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .._cuda import CudaLibrary
@@ -24,11 +25,15 @@ from .._cuda import CudaLibrary
 MAX_P = 4096      # plane width cap (int32 keys), equal to the JAX package's
 LANE = 128        # plane width multiple
 
+_PLANE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int]
 LIB = CudaLibrary(
     "fused_descent",
-    [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
-    + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
-    extra_flags=(f"-DMAX_P={MAX_P}",))
+    [ctypes.c_void_p, ctypes.c_int] + _PLANE_ARGS + [ctypes.c_void_p] * 2,
+    extra_flags=(f"-DMAX_P={MAX_P}",),
+    entries={"serve": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+             + _PLANE_ARGS + [ctypes.c_void_p] * 4})
+#: what ``fused_descent_serve`` returns for a batch it declines
+DECLINED = -1
 launches = LIB.launches
 reset_launches = LIB.reset_launches
 build = LIB.build
@@ -46,7 +51,8 @@ def fused_descent_cuda(queries: torch.Tensor, kinds, keys, pos_lo, pos_hi,
                        x1, y1, m, delta):
     """Launch the kernel: queries (Q,) int32 on a CUDA device; planes as
     packed by ``ops.pack_prefix`` on the same device → (lo, hi) int32 of
-    shape (L, Q).  Raises on anything the kernel does not take."""
+    shape (L, Q), the two halves of one (2, L, Q) buffer.  Raises on
+    anything the kernel does not take."""
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"fused_descent_cuda needs a CUDA tensor, got {dev}")
@@ -66,12 +72,39 @@ def fused_descent_cuda(queries: torch.Tensor, kinds, keys, pos_lo, pos_hi,
     for name, t in (("x1", x1), ("y1", y1), ("m", m), ("delta", delta)):
         _check_plane(name, t, torch.float32, (L, P), dev)
     Q = int(queries.shape[0])
-    lo = torch.empty((L, Q), dtype=torch.int32, device=dev)
-    hi = torch.empty((L, Q), dtype=torch.int32, device=dev)
-    if Q == 0:
-        return lo, hi
-    LIB.launch(dev, queries.data_ptr(), Q, kinds.data_ptr(), keys.data_ptr(),
-               pos_lo.data_ptr(), pos_hi.data_ptr(), x1.data_ptr(),
-               y1.data_ptr(), m.data_ptr(), delta.data_ptr(), L, P,
-               lo.data_ptr(), hi.data_ptr())
-    return lo, hi
+    out = torch.empty((2, L, Q), dtype=torch.int32, device=dev)
+    if Q > 0:
+        LIB.launch(dev, queries.data_ptr(), Q, kinds.data_ptr(),
+                   keys.data_ptr(), pos_lo.data_ptr(), pos_hi.data_ptr(),
+                   x1.data_ptr(), y1.data_ptr(), m.data_ptr(),
+                   delta.data_ptr(), L, P, out.data_ptr())
+    return out[0], out[1]
+
+
+def fused_descent_serve(q: np.ndarray, planes: tuple, staging: dict,
+                        windows: np.ndarray) -> bool:
+    """The serving engine's batch in one call of the source's
+    ``fused_descent_serve``: the (Q,) contiguous uint64 host queries go
+    through ``staging`` (``q_pinned``, ``out_pinned``: pinned int32 host
+    tensors of at least Q and 2LQ; ``q_dev``, ``out_dev``: their device
+    twins) and the packed ``planes`` (``ops.PLANES`` order, on the card)
+    into ``windows``, a contiguous float64 (2, L, Q) array, with the
+    stream synchronised.  → False, with nothing queued or counted, when a
+    query is not below 2^31 − 1 (the batch belongs to the numpy walk).
+    Raises on a CUDA error."""
+    keys = planes[1]
+    L, P = (int(s) for s in keys.shape)
+    Q = len(q)
+    if q.dtype != np.uint64 or not q.flags.c_contiguous \
+            or windows.dtype != np.float64 or windows.shape != (2, L, Q) \
+            or not windows.flags.c_contiguous:
+        raise ValueError("fused_descent_serve needs contiguous uint64 "
+                         "queries and a contiguous float64 (2, L, Q) array")
+    if staging["q_pinned"].numel() < Q \
+            or staging["out_pinned"].numel() < 2 * L * Q:
+        raise ValueError("the staging buffers hold fewer than Q queries")
+    return LIB.launch(
+        keys.device, q.ctypes.data, Q, staging["q_pinned"].data_ptr(),
+        staging["q_dev"].data_ptr(), *(t.data_ptr() for t in planes), L, P,
+        staging["out_dev"].data_ptr(), staging["out_pinned"].data_ptr(),
+        windows.ctypes.data, entry="serve", declined=DECLINED)

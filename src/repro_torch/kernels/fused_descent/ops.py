@@ -12,6 +12,8 @@ guards decline is served by the numpy walk, exactly as in the JAX package.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 from torch import nn
@@ -96,6 +98,18 @@ class FusedDescent(nn.Module):
     ``forward(queries)`` maps (Q,) int32 queries on the same device to the
     (L, Q) int32 windows ``(lo, hi)``.  On a CUDA device it launches the
     hand-written kernel; on the CPU it runs the plain PyTorch version.
+
+    :meth:`descend` is the serving engine's per-batch call, from uint64
+    host queries to float64 host windows.  On a card it is one call into
+    the kernel's library (``kernel.fused_descent_serve``) over staging
+    buffers kept for the module's life and grown to the largest batch
+    seen: pinned host buffers for the int32 queries and the (2, L, Q)
+    output, and their device twins.  A batch is one host-to-device copy,
+    one launch and one device-to-host copy queued on the current stream,
+    then one synchronisation of that stream: no device allocation a
+    batch.  :attr:`staging_lock` serialises :meth:`descend` across
+    threads (the engine's prefetch worker descends too), which share the
+    buffers.
     """
 
     def __init__(self, planes: dict, device=None):
@@ -105,6 +119,8 @@ class FusedDescent(nn.Module):
             self.register_buffer(
                 name, torch.from_numpy(np.ascontiguousarray(planes[name]))
                 .to(device))
+        self.staging_lock = threading.Lock()
+        self._staging = None
 
     @property
     def device(self) -> torch.device:
@@ -115,12 +131,47 @@ class FusedDescent(nn.Module):
 
     def forward(self, queries: torch.Tensor):
         if queries.device.type == "cuda":
-            return kernel.fused_descent_cuda(
-                queries, *(getattr(self, name) for name in PLANES))
+            return kernel.fused_descent_cuda(queries, *self.planes().values())
         if queries.device.type == "cpu":
             return ref.fused_descent_torch(self.planes(), queries)
         raise ValueError(f"FusedDescent runs on CUDA or the CPU, "
                          f"not {queries.device}")
+
+    def descend(self, q: np.ndarray):
+        """(Q,) uint64 host queries → float64 (L, Q) host windows
+        ``(lo, hi)``, or None when a query is not below 2^31 − 1 (the
+        caller's numpy walk serves such a batch)."""
+        q = np.ascontiguousarray(q, dtype=np.uint64)
+        if self.device.type != "cuda":
+            if int(q.max(initial=0)) >= _I32_LIM:
+                return None
+            lo, hi = self(torch.from_numpy(q.astype(np.int32)))
+            return (lo.numpy().astype(np.float64),
+                    hi.numpy().astype(np.float64))
+        windows = np.empty((2, int(self.keys.shape[0]), len(q)),
+                           dtype=np.float64)
+        with self.staging_lock:
+            if not kernel.fused_descent_serve(
+                    q, tuple(self.planes().values()), self.staging(len(q)),
+                    windows):
+                return None
+        return windows[0], windows[1]
+
+    def staging(self, n: int) -> dict:
+        """The staging buffers, grown first if they hold fewer than ``n``
+        queries (call with :attr:`staging_lock` held)."""
+        if self._staging is None or self._staging["q_pinned"].numel() < n:
+            L = int(self.keys.shape[0])
+            self._staging = {
+                "q_pinned": torch.empty(n, dtype=torch.int32,
+                                        pin_memory=True),
+                "out_pinned": torch.empty(2 * L * n, dtype=torch.int32,
+                                          pin_memory=True),
+                "q_dev": torch.empty(n, dtype=torch.int32,
+                                     device=self.device),
+                "out_dev": torch.empty(2 * L * n, dtype=torch.int32,
+                                       device=self.device)}
+        return self._staging
 
 
 def fused_descent_with_backend(layers, queries, *, backend: str = "cuda",
@@ -133,8 +184,8 @@ def fused_descent_with_backend(layers, queries, *, backend: str = "cuda",
     ``device_batches`` from it.
 
     ``module`` lets long-lived callers reuse one :class:`FusedDescent`
-    across batches; otherwise the prefix is packed onto ``device`` (the
-    card unless named).
+    (and its staging buffers) across batches; otherwise the prefix is
+    packed onto ``device`` (the card unless named).
     """
     q = np.atleast_1d(np.asarray(queries, dtype=np.uint64))
     if backend == "cuda":
@@ -142,12 +193,10 @@ def fused_descent_with_backend(layers, queries, *, backend: str = "cuda",
             packed = pack_prefix(layers)
             if packed is not None:
                 module = FusedDescent(packed, device=device)
-        if (module is not None and len(q)
-                and int(q.max(initial=0)) < _I32_LIM):
-            qt = torch.from_numpy(q.astype(np.int32)).to(module.device)
-            lo, hi = module(qt)
-            return (lo.cpu().numpy().astype(np.float64),
-                    hi.cpu().numpy().astype(np.float64), "cuda")
+        if module is not None and len(q):
+            got = module.descend(q)
+            if got is not None:
+                return got[0], got[1], "cuda"
     elif backend != "numpy":
         raise ValueError(f"unknown backend {backend!r}")
     lo, hi = ref.fused_descent_ref(layers, q)

@@ -36,8 +36,8 @@ class ServeRun:
     """What :func:`run` returns: each request's output tokens (by request
     id), the loop's counters and walls, the (batch, 1) token feed of
     every step, each step's logits when asked for, and the page table
-    tuned for the ``hbm`` tier over the sequences still held at the end
-    (None when none is)."""
+    tuned for the ``h100_hbm`` tier (the card's measured memory) over the
+    sequences still held at the end (None when none is)."""
     tokens: dict
     stats: dict
     feeds: list
@@ -114,7 +114,8 @@ def run(cfg, params, *, requests: int = 8, steps: int = 32, batch: int = 4,
                     slots[b] = None
         walls.append(time.perf_counter() - ts)
     wall = time.perf_counter() - t0
-    table = pool.tune_table("hbm", device=device) if pool.tables else None
+    table = (pool.tune_table("h100_hbm", device=device) if pool.tables
+             else None)
     stats = {"steps": steps, "out_tokens": out_tokens,
              "completed": completed, "wall_s": wall,
              "tokens_per_s": out_tokens / wall if wall > 0 else 0.0,

@@ -12,9 +12,10 @@ stored ``(in, out)`` and applied as ``x @ w``, attention tensors are
 package.  Prefill attention is the flash-attention kernel, decode
 attention the decode-attention kernel (their plain versions on the CPU).
 
-Not ported yet (ROADMAP.md, queue 1): the MoE FFN, decode for configs
-with a sliding window or an attention softcap (the TPU decode kernel has
-neither), and decode of more than one new token per step.
+Decode applies each layer's sliding window and the attention softcap
+inside the decode kernel, as the JAX package's ``decode_attention_jnp``
+does (gemma2).  Not ported yet (ROADMAP.md, queue 1): the MoE FFN and
+decode of more than one new token per step.
 """
 from __future__ import annotations
 
@@ -171,7 +172,8 @@ def _attention(cfg: ModelConfig, p: Block, x: torch.Tensor, tables, *,
         # cache instead
         ck[:, :, pos:pos + S] = k.transpose(1, 2)
         cv[:, :, pos:pos + S] = v.transpose(1, 2)
-        o = decode_attention(q[:, 0], ck, cv, kv_len)[0]     # (B, Hq, hd)
+        o = decode_attention(q[:, 0], ck, cv, kv_len, window=window,
+                             softcap=cfg.attn_softcap)[0]   # (B, Hq, hd)
         out = o.reshape(B, S, Hq * hd)
     return out.to(x.dtype) @ p.wo
 
@@ -241,10 +243,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _check_decode_supported(cfg: ModelConfig, n_new: int = 1) -> None:
-    if cfg.sliding_window is not None or cfg.attn_softcap is not None:
-        raise NotImplementedError(
-            f"decode for {cfg.name}: a sliding window or an attention "
-            f"softcap is {_ROADMAP}; the TPU decode kernel has neither")
     if cfg.n_experts:
         raise NotImplementedError(f"decode of MoE blocks is {_ROADMAP}")
     if n_new != 1:
@@ -275,7 +273,7 @@ def forward_decode(cfg: ModelConfig, model: Transformer, batch: dict,
     ck, cv = cache["k"], cache["v"]
     kv_len = torch.full((B,), pos + S, dtype=torch.int32, device=x.device)
     for layer, blk in enumerate(model.blocks):
-        x = _block(cfg, blk, x, tables, window=None,
+        x = _block(cfg, blk, x, tables, window=window_for(cfg, layer),
                    cache=(ck[layer], cv[layer], kv_len), pos=pos)
     x = rms_norm(x, model.final_norm)
     return unembed(cfg, model, x), cache

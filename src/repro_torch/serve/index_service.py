@@ -54,7 +54,7 @@ from repro_torch.kernels.fused_descent import (FusedDescent,
                                                pack_prefix, resolve_device)
 from repro_torch.serve.backend import (CorruptPageError,
                                        DeadlineExceededError, FileBackend,
-                                       ReadError)
+                                       ReadError, StorageBackend)
 
 DEFAULT_PAGE_BYTES = 4096
 
@@ -706,6 +706,12 @@ class IndexService:
     @property
     def _prefix(self) -> list:
         return self._st.prefix
+
+    @property
+    def storage(self) -> StorageBackend | None:
+        """The current epoch's storage backend; None after close."""
+        st = self._state
+        return st.storage if st is not None else None
 
     def _pin(self) -> _ServeState:
         """Claim the current epoch for one batch (pair with :meth:`_unpin`)."""

@@ -19,6 +19,7 @@ from repro.kernels.decode_attention import ops as jdo
 from repro.kernels.decode_attention import ref as jdr
 from repro.kernels.flash_attention import ops as jfo
 from repro.kernels.flash_attention import ref as jfr
+from repro.models.transformer import decode_attention_jnp
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.decode_attention import kernel as DK
@@ -109,6 +110,43 @@ def test_decode_folded_plain_matches_the_pallas_kernel_directly():
     port = da.decode_attention_folded(_t(q), _t(k), _t(v),
                                       torch.from_numpy(L))
     _close(port, pallas)
+
+
+@pytest.mark.parametrize("window", [None, 1, 16, 100, 300])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_decode_window_and_softcap_match_the_jax_models_decode(window,
+                                                               softcap):
+    """The JAX model's decode attention (``decode_attention_jnp``: the
+    softcap on the scaled scores, then the mask ``k_pos > kv_len − 1 −
+    window``) against the plain version, with lengths below, at and above
+    the window; m and l against a float64 numpy softmax over the same live
+    keys."""
+    B, Hq, Hkv, S, D = 4, 8, 2, 256, 32
+    rng = np.random.default_rng(17 + (window or 0))
+    q = rng.normal(size=(B, Hq, D)) * 2.0      # scores past the softcap
+    k, v = (rng.normal(size=(B, Hkv, S, D)) for _ in range(2))
+    L = np.asarray([1, 15, 101, 256], np.int32)
+    want = decode_attention_jnp(
+        jnp.asarray(q[:, :, None], jnp.float32), jnp.asarray(k, jnp.float32),
+        jnp.asarray(v, jnp.float32), jnp.asarray(L), window=window,
+        softcap=softcap)
+    o, m, l = da.decode_attention(_t(q), _t(k), _t(v), torch.from_numpy(L),
+                                  window=window, softcap=softcap)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want)[:, :, 0],
+                               atol=F32["o"], rtol=0)
+    G = Hq // Hkv
+    s = np.einsum("bhd,bhsd->bhs", q / np.sqrt(D),
+                  np.repeat(k, G, axis=1))
+    if softcap is not None:
+        s = softcap * np.tanh(s / softcap)
+    pos = np.arange(S)[None, None, :]
+    live = pos < L[:, None, None]
+    if window is not None:
+        live &= pos > L[:, None, None] - 1 - window
+    mx = np.where(live, s, -np.inf).max(axis=-1)
+    lsum = np.where(live, np.exp(s - mx[..., None]), 0.0).sum(axis=-1)
+    np.testing.assert_allclose(m.numpy(), mx, atol=F32["m"], rtol=0)
+    np.testing.assert_allclose(l.numpy(), lsum, rtol=F32["l"])
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])

@@ -151,7 +151,7 @@ def test_serve_spec_round_trip_and_validation():
     with pytest.raises(ValueError):
         ServeSpec(backend="torch").validate()
     with pytest.raises(ValueError):
-        ServeSpec(cache_profile="vmem").validate()   # a TPU tier
+        ServeSpec(cache_profile="tape").validate()   # named by neither
     with pytest.raises(ValueError):
         ServeSpec(prefetch_layers=0).validate()
     # persisted stats are ported: the knob validates and round-trips

@@ -167,3 +167,41 @@ def test_unknown_backends_raise():
             cs.candidate_scores(W, wt, P.PROFILES["azure_ssd"], backend=bad)
         with pytest.raises(ValueError, match="unknown backend"):
             cs.affine_candidate_scores(W, wt, 1.0, 1.0, backend=bad)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's host-side arithmetic (pure functions of shape and SM count)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("C,S,sms,want", [
+    (39, 65654, 132, 7),        # the tuner's largest shape: ~two blocks an SM
+    (1, 65654, 132, 32),        # capped so each split keeps 2,048 elements
+    (300, 65654, 132, 1),       # rows alone fill the card
+    (7, 127, 132, 1),           # too short to split
+    (8, 4096, 16, 2),
+])
+def test_candidate_score_split_count(C, S, sms, want):
+    n = CK.split_count(C, S, sms)
+    assert n == want
+    assert n == 1 or S // n >= CK.MIN_SPLIT_ELEMS
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 7, 8, 9, 11, 4097, 65654])
+@pytest.mark.parametrize("n_split", [1, 2, 7])
+def test_candidate_score_splits_read_each_element_once(S, n_split):
+    """Every row, at each of the four 16-byte offsets a row can start at,
+    is read exactly once over its splits: a scalar head and tail in split
+    0, and 16-byte vectors that start aligned (row c starts at element
+    c·S) and whose weights stay inside the array."""
+    for c in range(4):
+        spans = CK.row_spans(c, S, n_split)
+        assert len(spans) == n_split
+        seen = sorted(x for split in spans for a, b in split
+                      for x in range(a, b))
+        assert seen == list(range(S))
+        A = (-c * S) % 4
+        for i, split in enumerate(spans):
+            vec = split[2:] if i == 0 else split
+            for a, b in vec:
+                assert (c * S + a) % 4 == 0 and (b - a) % 4 == 0
+                # wt's aligned vectors j and j + 1 end inside the array
+                assert A == 0 or (b - 4 - A) + 8 <= S

@@ -399,3 +399,122 @@ def test_shared_memory_mirrors_equal_the_sources(card):
                 assert dlib.decode_attention_smem_bytes(
                     D, bits[dt], bits[kt]) == DK.smem_bytes(D, dt, kt)
     assert flib.flash_attention_smem_bytes(96, 1) == -1
+
+
+# ---------------------------------------------------------------------------
+# the redesigned candidate_score and fused_descent, windowed decode
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("C", [1, 39, 300])
+@pytest.mark.parametrize("S", [65536, 65537, 65538, 65539, 5, 6, 7, 8])
+def test_candidate_score_split_rows_at_every_alignment(card, C, S):
+    """S % 4 in {0, 1, 2, 3}, so rows start at every 16-byte offset; two
+    launches are bit-equal and leave the ticket counters at 0."""
+    rng = np.random.default_rng(C * 7 + S)
+    W = rng.uniform(16.0, 1e6, size=(C, S))
+    wt = rng.uniform(0.5, 4.0, size=S)
+    ell, inv_bw = affine_coefficients(PROFILES["azure_ssd"])
+    Wt = torch.from_numpy(W.astype(np.float32)).to(card)
+    wtt = torch.from_numpy(wt.astype(np.float32)).to(card)
+    first = CK.affine_scores_cuda(Wt, wtt, ell, inv_bw)
+    second = CK.affine_scores_cuda(Wt, wtt, ell, inv_bw)
+    plain = cs.affine_scores_torch(Wt, wtt, ell, inv_bw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert int(CK._tickets(card, C)[:C].abs().sum()) == 0
+    np.testing.assert_allclose(first.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(first.cpu().numpy().astype(np.float64),
+                               cs.affine_scores_ref(W, wt, ell, inv_bw),
+                               rtol=3e-5)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4])
+@pytest.mark.parametrize("P", [128, 640, 4096])
+def test_fused_descent_layers_in_parallel(card, L, P):
+    """Mixed planes of 1-4 layers, every layer on its own blocks: the
+    kernel equals the plain version bit for bit, and the engine's staged
+    path (pinned buffers, one copy each way) returns the same windows."""
+    rng = np.random.default_rng(L * 1000 + P + 1)
+    layers = _prefix(rng, L, P, True)
+    mod = fd.FusedDescent(fd.pack_prefix(layers), device=card)
+    for Q in (1, 127, 4097, 300):           # the buffers grow, then shrink
+        q = rng.integers(1, 2**31 - 2, Q).astype(np.uint64)
+        qt = torch.from_numpy(q.astype(np.int32)).to(card)
+        lo, hi = mod(qt)
+        plo, phi = fd.fused_descent_torch(mod.planes(), qt)
+        torch.cuda.synchronize()
+        assert torch.equal(lo, plo) and torch.equal(hi, phi)
+        before = K.launches()
+        slo, shi, used = fd.fused_descent_with_backend(layers, q,
+                                                       module=mod)
+        assert used == "cuda" and K.launches() == before + 1
+        np.testing.assert_array_equal(slo, plo.cpu().numpy())
+        np.testing.assert_array_equal(shi, phi.cpu().numpy())
+        assert slo.dtype == np.float64 and slo.shape == (L, Q)
+
+
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 64, 4095, 4097, 32768])
+def test_decode_window_and_softcap_at_tile_and_window_edges(card, S, dtype,
+                                                            window):
+    """gemma2's heads (32 query, 16 kv, D = 128), with row lengths at 0,
+    1, the window's edges and the capacity; a softcap of 5 bends scores of
+    the inputs' size (gemma2's 50 is held in chip_smoke.py phase 10)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Hkv, G, D = 4, 16, 2, 128
+    R = B * Hkv
+    q, k, v = _randn(card, S + window, (R, G, D), (R, S, D), (R, S, D),
+                     dtype=dtype)
+    q = q * 2
+    lens = np.asarray([0, 1, min(window + 1, S), S])
+    lt = torch.from_numpy(np.repeat(lens, Hkv).astype(np.int32)).to(card)
+    o, m, l = DK.decode_attention_cuda(q, k, v, lt, window=window,
+                                       softcap=5.0)
+    po, pm, pl = da.decode_attention_ref(q, k, v, lt, window=window,
+                                         softcap=5.0)
+    torch.cuda.synchronize()
+    to, tm, tl, _ = ATTN_TOL[dtype]
+    assert float((o - po).abs().max()) <= to
+    assert float((m - pm).abs().max()) <= tm
+    assert float(((l - pl).abs() / pl.clamp_min(1.0)).max()) <= tl
+    assert torch.all(o[:Hkv] == 0) and torch.all(l[:Hkv] == 0)
+
+
+def test_fused_descent_staging_is_shared_safely_across_threads(card):
+    """The engine descends from its serving thread and its prefetch
+    worker at once, through one module's staging buffers: eight threads
+    of mixed batch sizes, a short switch interval, each result equal to
+    its own batch's plain version."""
+    import sys
+    import threading
+    rng = np.random.default_rng(5)
+    layers = _prefix(rng, 2, 640, True)
+    mod = fd.FusedDescent(fd.pack_prefix(layers), device=card)
+    batches = [rng.integers(1, 2**31 - 2, int(n)).astype(np.uint64)
+               for n in rng.integers(1, 5000, 64)]
+    want = []
+    for q in batches:
+        lo, hi = fd.fused_descent_torch(
+            mod.planes(), torch.from_numpy(q.astype(np.int32)).to(card))
+        want.append((lo.cpu().numpy(), hi.cpu().numpy()))
+    bad = []
+
+    def work(k):
+        for i in range(k, len(batches), 8):
+            lo, hi = mod.descend(batches[i])
+            if not (np.array_equal(lo, want[i][0])
+                    and np.array_equal(hi, want[i][1])):
+                bad.append(i)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not bad

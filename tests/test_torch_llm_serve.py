@@ -101,12 +101,21 @@ def test_page_table_tunes_to_the_jax_design_and_cost():
 
 
 def test_hbm_profile_is_the_cards_not_the_v5e():
-    hbm, v5e = PROFILES["hbm"], JPROFILES["hbm"]
-    assert (hbm.latency, hbm.bandwidth) != (v5e.latency, v5e.bandwidth)
-    assert hbm.bandwidth > v5e.bandwidth       # an H100, not a v5e
-    table = _apply(PagedKVCache(n_pages=1024), _ops(7)).tune_table(
-        "hbm", score_backend="numpy")
+    # the card's measured memory is "h100_hbm"; "hbm" is the v5e's in both
+    # packages, and the pool still defaults to it, as the reference's does
+    h100, v5e = PROFILES["h100_hbm"], JPROFILES["hbm"]
+    assert (h100.latency, h100.bandwidth) != (v5e.latency, v5e.bandwidth)
+    assert h100.bandwidth > v5e.bandwidth      # an H100, not a v5e
+    assert (PROFILES["hbm"].latency, PROFILES["hbm"].bandwidth) == \
+        (v5e.latency, v5e.bandwidth)
+    pool = _apply(PagedKVCache(n_pages=1024), _ops(7))
+    table = pool.tune_table("h100_hbm", score_backend="numpy")
     assert table.cost > 0
+    ref = _apply(JPaged(n_pages=1024), _ops(7))
+    got = pool.tune_table(score_backend="numpy")
+    want = ref.tune_table()
+    assert got.design.describe() == want.design.describe()
+    assert got.cost == want.cost
 
 
 @pytest.fixture(scope="module")

@@ -206,6 +206,34 @@ def test_decode_step_by_step_matches_jax(pair, arch, dtype):
                                atol=TOL[dtype] * 10, rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemma2_decode_with_window_and_softcap_matches_jax(dtype):
+    """gemma2's decode (local layers windowed at 16, global layers not,
+    attention softcap 50, final softcap 30) step by step against the JAX
+    package's decode on the same parameters, past the window: 5e-3 of max
+    |logit| in float32, as the dense decode is held to its own prefill;
+    bfloat16 at the dense tests' limit."""
+    jc, tc = _cfgs("gemma2_27b", dtype)
+    assert tc.sliding_window == 16 and tc.attn_softcap == 50.0
+    jp = japi.init_params(jc, jax.random.PRNGKey(3))
+    tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    steps, cap = 24, 32
+    toks = _tokens(jc, 5, (B, steps))
+    jstate = japi.init_decode_state(jc, jp, B, cap)
+    state = api.init_decode_state(tc, tp, B, cap)
+    jdec, dec = j_decode_step(jc), make_decode_step(tc)
+    tol = {"float32": 5e-3, "bfloat16": TOL["bfloat16"]}[dtype]
+    for t in range(steps):
+        want, jstate = jdec(jp, {"tokens": jnp.asarray(toks[:, t:t + 1])},
+                            jstate, t)
+        got, state = dec(tp, {"tokens": torch.from_numpy(toks[:, t:t + 1])},
+                         state, t)
+        w = np.asarray(want, np.float32)[:, :jc.vocab]
+        g = got.float().numpy()[:, :jc.vocab]
+        assert np.abs(g - w).max() / np.abs(w).max() < tol, t
+        assert np.isfinite(g).all()
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_own_prefill(pair, arch):
     jc, jp, tc, tp = pair(arch, "float32")
@@ -228,12 +256,15 @@ def test_unported_families_and_decode_cases_raise():
             api.init_params(cfg, 0, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.decode_state_specs(cfg, 1, 8)
+    # gemma2 (window and softcap) decodes: the reference's case of
+    # ROADMAP.md F3 gives finite logits of shape (1, 1, vocab)
     g = tconfigs.get_config("gemma2_27b", smoke=True).scaled(dtype="float32")
     gp = api.init_params(g, 0, device="cpu")
     state = api.init_decode_state(g, gp, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.forward_decode(g, gp, {"tokens": torch.ones(1, 1, dtype=torch.int32)},
-                           state, 0)
+    logits, _ = api.forward_decode(
+        g, gp, {"tokens": torch.ones(1, 1, dtype=torch.int32)}, state, 0)
+    assert logits.shape == (1, 1, g.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
     q = tconfigs.get_config("qwen3_14b", smoke=True).scaled(dtype="float32")
     qp = api.init_params(q, 0, device="cpu")
     state = api.init_decode_state(q, qp, 1, 8)

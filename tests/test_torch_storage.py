@@ -93,16 +93,15 @@ def test_profile_dict_edge_cases_identical():
 
 
 def test_named_profiles_are_the_papers_tiers():
-    # the TPU system's tiers are not carried; "hbm" is the port's own,
-    # measured on the H100, so it shares only its name with the v5e's
-    tpu_tiers = {"object_store", "hbm", "vmem", "ici", "dcn"}
-    assert set(P.PROFILES) == set(R.PROFILES) - tpu_tiers | {"hbm"}
-    for name, prof in P.PROFILES.items():
-        if name != "hbm":
-            assert P.profile_to_dict(prof) == \
-                R.profile_to_dict(R.PROFILES[name])
-    hbm, v5e = P.PROFILES["hbm"], R.PROFILES["hbm"]
-    assert (hbm.latency, hbm.bandwidth) != (v5e.latency, v5e.bandwidth)
+    # every tier of the JAX package is carried verbatim, its TPU-system
+    # constants ("object_store", "hbm", "vmem", "ici", "dcn") included; the
+    # card's measured memory is the port's own "h100_hbm"
+    assert set(P.PROFILES) == set(R.PROFILES) | {"h100_hbm"}
+    for name, prof in R.PROFILES.items():
+        assert P.profile_to_dict(P.PROFILES[name]) == R.profile_to_dict(prof)
+    h100, v5e = P.PROFILES["h100_hbm"], R.PROFILES["hbm"]
+    assert P.PROFILES["h100_hbm"].name == "h100_hbm"
+    assert (h100.latency, h100.bandwidth) != (v5e.latency, v5e.bandwidth)
 
 
 @pytest.mark.parametrize("objective", [
