@@ -29,11 +29,16 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
    ``affine_scores_torch`` to rtol 1e-5 and the float64 oracle to rtol
    3e-5, and a second launch must equal the first bit for bit.
 5. The index-lookup kernels against their plain versions: step layers of
-   P in 1/64/127/128/1000/4096, band layers of P in 1/10/300/4096,
-   segmented step layers of P in 4097/20000/81000/823133, each at Q in
-   1/255/256/257/4097/65536/2^20; every kernel must equal its plain
-   version bit for bit, and step and segmented rows the float64
-   ``layer.predict``.
+   P in 1/64/127/128/1000/4096, band layers of P in
+   1/10/171/300/723/1024/1025/4096, two-level step layers of P in
+   4097/4224/4225/20000/81000/823133 and at the widths whose grid (one
+   key in 128) just fits and just overflows a block's shared memory, each
+   at Q in 1/255/256/257/4097/65536/2^20 (queries below the first key, at
+   the last, above it, 2^31 - 1 and every grid key among them); every
+   kernel must equal its plain version bit for bit (the segmented kernel,
+   which runs both levels, the plain ``segment_bases`` +
+   ``segmented_step_lookup_torch``), and step and segmented rows the
+   float64 ``layer.predict``.
 6. The serving path at a deployment's size: ~200 M unique int32-domain
    keys from the paper's §7.1 100-cluster Gaussian mixture, 16-byte
    records, a gstep(8, 4096) <- gband(1024) <- gstep(8, 4096) index
@@ -67,7 +72,12 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
    gstep(8, 4096) design (step, band and segmented kernels), over a
    uniform stream of 256 batches x 4096 keys and one 2^20-key batch:
    every range must contain its record, step bottoms must equal the
-   float64 ``lookup_batch``, band bottoms are compared with it.
+   float64 ``lookup_batch``, band bottoms are compared with it; exactly
+   one launch a layer and batch; each batch's host split (int32 cast,
+   copy in, each layer's call, copy out, widening).  The two-level layer
+   call must launch its kernel once and nothing else (20 calls counted,
+   one traced).  Band and segmented kernels are timed at the stream's
+   batch and at 2^20 keys (the band also at generation 0's width).
 10. The attention kernels against their plain versions: decode at
    (query, kv) heads 40/8, 32/2 and 8/8, D in 128/64, S in
    1/127/128/4096/32768 with per-row lengths from 1..S and one row of
@@ -150,10 +160,14 @@ LOOKUP_KERNELS = {                  # name -> (source, the TPU kernel it replace
         "src/repro/kernels/index_lookup/kernel.py:136"),
 }
 LOOKUP_STEP_P = (1, 64, 127, 128, 1000, 4096)
-LOOKUP_BAND_P = (1, 10, 300, 4096)
-# two-level widths: past the cap, ~the 20.8 M-key bottom layer, phase 6's
-LOOKUP_SEG_P = (4097, 20_000, 81_000, 823_133)
+# band widths: phase 9's two (171, 723) and the parameter-staging edge
+LOOKUP_BAND_P = (1, 10, 171, 300, 723, 1024, 1025, 4096)
+# two-level widths: past the cap, a 33rd segment of 1 and of 2 keys
+# (4224 = 33 x 128), ~the 20.8 M-key bottom layer, phase 6's; phase 5 adds
+# the widths whose grid just fits and just overflows a block's shared memory
+LOOKUP_SEG_P = (4097, 4224, 4225, 20_000, 81_000, 823_133)
 LOOKUP_Q = (1, 255, 256, 257, 4097, 65536, 1 << 20)
+LOOKUP_BIG_Q = 1 << 20           # phase 9's second batch size
 LOOP_BATCHES = 64
 KERNEL_REPLACES = "src/repro/kernels/fused_descent/kernel.py:96"
 SCORE_SOURCE = "src/repro_torch/csrc/candidate_score.cu"
@@ -1106,10 +1120,16 @@ def tune_phase(args, device, card, max_rel: float) -> tuple:
 def lookup_layer(rng, P: int, band: bool) -> tuple:
     """A random int32 layer of P entries whose first key is 1, so every
     query in [1, 2^31-2) lies in its domain: step → (keys, pos) with P + 1
-    positions, band → (keys, x1, y1, m, delta)."""
+    positions, band → (keys, x1, y1, m, delta).  Up to ~2 M entries the
+    keys are distinct multiples of 997 (plus 2); a wider layer's keys are 1
+    plus a running sum of gaps U[1, 2^31 / P)."""
     step = 997
-    keys = np.concatenate([[1], np.sort(rng.choice(
-        (2**31 - 5) // step, P - 1, replace=False)) * step + 2])
+    if P <= (2**31 - 5) // step:
+        keys = np.concatenate([[1], np.sort(rng.choice(
+            (2**31 - 5) // step, P - 1, replace=False)) * step + 2])
+    else:
+        keys = 1 + np.concatenate([[0], np.cumsum(rng.integers(
+            1, (2**31 - 2) // P, P - 1))])
     keys = keys.astype(np.int32)
     if band:
         return (keys, keys.astype(np.float32),
@@ -1132,6 +1152,11 @@ def check_lookup_kernels(device, seed: int) -> dict:
     rng = np.random.default_rng(seed + 5)
     errs = dict.fromkeys(LOOKUP_KERNELS, 0.0)
     n_cases = 0
+    # the widths whose grid (one key in LANE) just fits and just overflows
+    # the shared memory a block may hold: the second searches its grid in
+    # global memory
+    cap = IK.grid_cap() * il.LANE
+    seg_p = LOOKUP_SEG_P + (cap, cap + 1)
 
     def on(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -1142,7 +1167,10 @@ def check_lookup_kernels(device, seed: int) -> dict:
         k = min(Q, 4)
         q[:k] = keys[rng.integers(0, len(keys), k)]     # equal to keys
         if Q > 8:
-            q[k] = 0                                     # below the first
+            q[k:k + 4] = (0, keys[-1], keys[-1] + 1, 2**31 - 1)
+        grid = keys[::il.LANE]
+        if Q >= 16 + len(grid):                          # every grid key
+            q[16:16 + len(grid)] = grid
         return q
 
     def held(name, got, want, what):
@@ -1154,7 +1182,7 @@ def check_lookup_kernels(device, seed: int) -> dict:
             raise AssertionError(f"{name} != plain at {what}: max |diff| "
                                  f"{err}")
 
-    for P in LOOKUP_STEP_P + LOOKUP_SEG_P:
+    for P in LOOKUP_STEP_P + seg_p:
         keys, pos = lookup_layer(rng, P, band=False)
         layer = StepLayer(piece_keys=keys.astype(np.uint64),
                           piece_pos=pos.astype(np.int64),
@@ -1166,9 +1194,9 @@ def check_lookup_kernels(device, seed: int) -> dict:
             q = queries(Q, keys)
             qt, = on(q)
             if seg:
-                base = il.segment_bases(kt, qt)
-                got = IK.segmented_step_lookup_cuda(qt, base, kt, plo, phi)
-                want = il.segmented_step_lookup_torch(qt, base, kt, plo, phi)
+                got = IK.segmented_step_lookup_cuda(qt, kt, plo, phi)
+                want = il.segmented_step_lookup_torch(
+                    qt, il.segment_bases(kt, qt), kt, plo, phi)
             else:
                 got = IK.step_lookup_cuda(qt, kt, plo, phi)
                 want = il.step_lookup_torch(qt, kt, plo, phi)
@@ -1187,8 +1215,10 @@ def check_lookup_kernels(device, seed: int) -> dict:
             held("band_lookup", IK.band_lookup_cuda(qt, *ts),
                  il.band_lookup_torch(qt, *ts), f"P={P} Q={Q}")
             n_cases += 1
-    log(f"index-lookup kernel check: {n_cases} shapes, each kernel == its "
-        f"plain version bit for bit, step and segmented rows == the float64 "
+    log(f"index-lookup kernel check: {n_cases} shapes (segmented P = "
+        f"{cap} and {cap + 1} at the block's grid cap of {cap // il.LANE} "
+        f"entries too), each kernel == its plain "
+        f"version bit for bit, step and segmented rows == the float64 "
         f"layer.predict")
     return errs
 
@@ -1335,36 +1365,81 @@ def traverse_stream(name: str, layers: list, design, keys: np.ndarray,
     """One design through ``traverse_index`` on a uniform stream and one
     2^20-key batch; every range must contain its record; a step bottom
     must equal the float64 ``lookup_batch``, a band bottom is compared
-    with it (count and size of the differences)."""
+    with it (count and size of the differences).  The host split of a
+    batch: the int32 cast, the copy in, each layer's call (the port's own
+    ``lookup_step_layer`` / ``lookup_band_layer``, timed by wrappers
+    around them), the rest of ``traverse_index``, the stack of lo and hi,
+    the copy out (which waits for the card) and the int64 widening."""
     import torch
 
     from repro_torch.core import lookup_batch
-    from repro_torch.kernels.index_lookup import traverse_index
+    from repro_torch.kernels.index_lookup import ops
+
+    calls = []                  # each layer call's wall, top-down a batch
+    split = {k: [] for k in ("cast", "h2d", "traverse", "stack", "d2h",
+                             "widen")}
 
     def run(ix):
-        qt = torch.from_numpy(keys[ix].astype(np.int32)).to(device)
-        lo, hi = traverse_index(layers, qt)
-        return torch.stack([lo, hi], 1).cpu().numpy().astype(np.int64)
+        pc = time.perf_counter
+        t = [pc()]
+        q = keys[ix].astype(np.int32)
+        t.append(pc())
+        qt = torch.from_numpy(q).to(device)
+        t.append(pc())
+        lo, hi = ops.traverse_index(layers, qt)
+        t.append(pc())
+        st = torch.stack([lo, hi], 1)
+        t.append(pc())
+        c = st.cpu()
+        t.append(pc())
+        out = c.numpy().astype(np.int64)
+        t.append(pc())
+        for i, k in enumerate(split):
+            split[k].append(t[i + 1] - t[i])
+        return out
 
-    torch.cuda.synchronize()
-    walls, out = [], []
-    t_all = time.perf_counter()
-    for b in range(N_BATCHES):
+    n = design.n_layers
+    names = []                  # top-down, as traverse_index calls them
+    for i, layer in enumerate(design.layers):
+        w = len(layer.piece_keys if layer.kind == "step" else layer.node_keys)
+        names.insert(0, f"L{i + 1} {layer.kind} P={w}")
+    step_fn, band_fn = ops.lookup_step_layer, ops.lookup_band_layer
+    ops.lookup_step_layer = timing(step_fn, calls)
+    ops.lookup_band_layer = timing(band_fn, calls)
+    try:
+        torch.cuda.synchronize()
+        walls, out = [], []
+        t_all = time.perf_counter()
+        for b in range(N_BATCHES):
+            t0 = time.perf_counter()
+            out.append(run(idx[b * BATCH:(b + 1) * BATCH]))
+            walls.append(time.perf_counter() - t0)
+        stream_wall = time.perf_counter() - t_all
         t0 = time.perf_counter()
-        out.append(run(idx[b * BATCH:(b + 1) * BATCH]))
-        walls.append(time.perf_counter() - t0)
-    stream_wall = time.perf_counter() - t_all
-    t0 = time.perf_counter()
-    rbig = run(big)
-    big_wall = time.perf_counter() - t0
+        rbig = run(big)
+        big_wall = time.perf_counter() - t0
+    finally:
+        ops.lookup_step_layer, ops.lookup_band_layer = step_fn, band_fn
     walls = np.asarray(walls)
-    rep = {"layers": design.n_layers, "bottom": design.layers[0].kind,
+
+    def host_split(rows: slice) -> dict:
+        us = {k: float(np.median(v[rows])) * 1e6 for k, v in split.items()}
+        per = np.asarray(calls).reshape(-1, n)[rows]
+        for j, nm in enumerate(names):
+            us[f"call {nm}"] = float(np.median(per[:, j])) * 1e6
+        us["traverse rest"] = us["traverse"] - sum(
+            us[f"call {nm}"] for nm in names)
+        return us
+
+    rep = {"layers": n, "bottom": design.layers[0].kind,
            "lookups_per_s": len(idx) / stream_wall,
            "batch_wall_mean_s": float(walls.mean()),
            "batch_wall_median_s": float(np.median(walls)),
            "batch_wall_p99_s": float(np.quantile(walls, 0.99)),
            "big_batch_wall_s": big_wall,
-           "big_batch_lookups_per_s": len(big) / big_wall}
+           "big_batch_lookups_per_s": len(big) / big_wall,
+           "host_split_median_us": host_split(slice(0, N_BATCHES)),
+           "host_split_2^20_batch_us": host_split(slice(N_BATCHES, None))}
     for ranges, ix, what in ((np.concatenate(out), idx, "stream"),
                              (rbig, big, "2^20 batch")):
         check_ranges(ranges, ix, f"{name} {what}")
@@ -1384,46 +1459,81 @@ def traverse_stream(name: str, layers: list, design, keys: np.ndarray,
     return rep
 
 
-def lookup_kernel_entry(name: str, kern, plain, library, nbytes: int,
-                        ops: int, launches: int, err: float, card: str,
-                        shape: str) -> dict:
-    """One index-lookup kernel's numbers at a main-path shape → its
-    kernels-line entry: device times L2-cold (a 128 MiB rewrite before
-    each call) as the kernels line holds them, back to back beside."""
-    cold = {"ms": cold_device_ms(kern, 50),
-            "plain_ms": cold_device_ms(plain, 50),
-            "library_ms": cold_device_ms(library, 50) if library else None}
-    warm = {"ms": device_ms_per_call(kern, 200),
-            "plain_ms": device_ms_per_call(plain, 200),
-            "library_ms": device_ms_per_call(library, 200) if library
-            else None}
-    call_ms = time_launches(kern, 200, 15)
+def lookup_numbers(kern, plain, library, nbytes: int, ops: int) -> dict:
+    """One index-lookup kernel's device times at one shape: L2-cold (a
+    128 MiB rewrite before each call) and back to back, beside its plain
+    version, the library call where there is one and its bound; and the
+    wrapper call's wall back to back (CUDA events around 200 calls)."""
     bound_ms, bound_by = roofline_bound(nbytes, ops)
+    return {"ms": cold_device_ms(kern, 50),
+            "plain_ms": cold_device_ms(plain, 50),
+            "library_ms": cold_device_ms(library, 50) if library else None,
+            "warm_ms": device_ms_per_call(kern, 200),
+            "plain_warm_ms": device_ms_per_call(plain, 200),
+            "library_warm_ms": device_ms_per_call(library, 200) if library
+            else None,
+            "wrapper_ms": time_launches(kern, 200, 15),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops}
 
+
+def log_lookup_numbers(name: str, shape: str, card: str, r: dict,
+                       launches: int | None = None) -> None:
     def us(v):
         return "n/a" if v is None else f"{v * 1e3:.3f} us"
 
     log(f"{name} at {shape} on {card}: device time per call with the L2 "
-        f"flushed {us(cold['ms'])} (plain torch {us(cold['plain_ms'])}; "
-        f"torch.searchsorted + gather {us(cold['library_ms'])}), back to back "
-        f"{us(warm['ms'])} (plain {us(warm['plain_ms'])}; yardstick "
-        f"{us(warm['library_ms'])}); wrapper call back to back "
-        f"{us(call_ms)}; bound {bound_ms * 1e3:.4f} us by {bound_by} "
-        f"({nbytes} B, {ops} ops); {launches} launches on the in-memory "
-        f"Alg. 1 path")
+        f"flushed {us(r['ms'])} (plain torch {us(r['plain_ms'])}; "
+        f"torch.searchsorted + gather {us(r['library_ms'])}), back to back "
+        f"{us(r['warm_ms'])} (plain {us(r['plain_warm_ms'])}; yardstick "
+        f"{us(r['library_warm_ms'])}); wrapper call back to back "
+        f"{us(r['wrapper_ms'])}; bound {r['bound_ms'] * 1e3:.4f} us by "
+        f"{r['bound_by']} ({r['bytes']} B, {r['ops']} ops)"
+        + ("" if launches is None else
+           f"; {launches} launches on the in-memory Alg. 1 path"))
+
+
+def lookup_kernel_entry(name: str, launches: int, err: float,
+                        at: dict) -> dict:
+    """The kernels-line entry of one index-lookup kernel from its numbers
+    at the stream's batch (``at[BATCH]``), with the 2^20-key batch's under
+    ``at_2^20`` where it was measured."""
+    r = at[BATCH]
     source, replaces = LOOKUP_KERNELS[name]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": cold["ms"], "plain_ms": cold["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": cold["library_ms"]}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"]}
+    if LOOKUP_BIG_Q in at:
+        entry["at_2^20"] = {k: at[LOOKUP_BIG_Q][k] for k in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "wrapper_ms")}
+    return entry
+
+
+def segmented_bytes(keys: np.ndarray, q: np.ndarray) -> int:
+    """The bytes the two-level lookup of the batch ``q`` must move: its
+    queries and windows (12 B a query), 4 B of key for each entry of a
+    segment a query falls in, 8 B of positions for each distinct entry
+    chosen."""
+    from repro_torch.kernels.index_lookup import LANE
+    P = len(keys)
+    g = np.maximum(np.searchsorted(keys[::LANE], q, side="right") - 1, 0)
+    bases = np.unique(g).astype(np.int64) * LANE
+    seg_keys = int(np.minimum(LANE, P - bases).sum())
+    picked = np.unique(np.maximum(np.searchsorted(keys, q, side="right") - 1,
+                                  0)).size
+    return 12 * len(q) + 4 * seg_keys + 8 * picked
 
 
 def alg1_phase(args, device, card, tuned: dict, gen1, errs: dict) -> list:
     """Phase 9: ``traverse_index`` on the card over the tuning phase's keys
     for both loop generations and a gstep(8, 4096) <- gband(1024) <-
     gstep(8, 4096) design, then each lookup kernel's numbers at that
-    design's shapes → the three kernels-line entries."""
+    design's shapes (band and segmented at the stream's batch and at 2^20
+    keys; the band also at generation 0's width) → the three kernels-line
+    entries."""
     import torch
 
     from repro_torch.kernels import index_lookup as il
@@ -1435,7 +1545,8 @@ def alg1_phase(args, device, card, tuned: dict, gen1, errs: dict) -> list:
     designs = {"generation 0": tuned["gen0"].design,
                "generation 1": gen1.design, "gstep<-gband<-gstep": manual}
     idx = make_streams(D.n, args.seed + 6, N_BATCHES, BATCH)["uniform"]
-    big = np.random.default_rng(args.seed + 7).integers(0, D.n, 1 << 20)
+    big = np.random.default_rng(args.seed + 7).integers(0, D.n,
+                                                         LOOKUP_BIG_Q)
     planes = {name: il.device_arrays_from_design(d)
               for name, d in designs.items()}
     for lib in IK.LIBS:
@@ -1457,17 +1568,21 @@ def alg1_phase(args, device, card, tuned: dict, gen1, errs: dict) -> list:
         f"contains its record; step bottoms equal lookup_batch; manual "
         f"design built in {t_build:.1f} s")
 
-    # -- each kernel at the manual design's shapes (the stream's batch) ------
+    # -- each kernel at the manual design's shapes ---------------------------
     ml = planes["gstep<-gband<-gstep"]
     bottom, band, top = ml[0], ml[1], ml[2]
     Pb, Pm, Pt = (int(x.shape[0]) for x in (bottom["piece_keys"],
                                             band["node_keys"],
                                             top["piece_keys"]))
     assert Pb > il.MAX_VMEM_ENTRIES >= max(Pm, Pt), (Pb, Pm, Pt)
-    q = keys[idx[-BATCH:]].astype(np.int32)
-    qt = torch.from_numpy(q).to(device)
-    Q = BATCH
-    entries = []
+    qs = {BATCH: keys[idx[-BATCH:]].astype(np.int32),
+          LOOKUP_BIG_Q: keys[big].astype(np.int32)}
+    qts = {Q: torch.from_numpy(q).to(device) for Q, q in qs.items()}
+
+    def held(got, want_, what):
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want_)):
+            raise AssertionError(f"{what}: kernel != plain on phase 9's batch")
 
     def step_parts(layer):
         k = layer["piece_keys"]
@@ -1479,53 +1594,84 @@ def alg1_phase(args, device, card, tuned: dict, gen1, errs: dict) -> list:
         table = torch.cat([pos2[:1], pos2]).contiguous()
         return k, plo, phi, table
 
+    entries = []
     k, plo, phi, table = step_parts(top)
-    got = IK.step_lookup_cuda(qt, k, plo, phi)
-    want_ = il.step_lookup_torch(qt, k, plo, phi)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(got, want_))
-    entries.append(lookup_kernel_entry(
-        "step_lookup", lambda: IK.step_lookup_cuda(qt, k, plo, phi),
-        lambda: il.step_lookup_torch(qt, k, plo, phi),
-        lambda: table[torch.searchsorted(k, qt, right=True)],
-        4 * Q + 12 * Pt + 8 * Q, Q * math.ceil(math.log2(Pt + 1)),
-        launches["step_lookup"], errs["step_lookup"], card,
-        f"the top layer (Q={Q}, P={Pt})"))
+    qt = qts[BATCH]
+    held(IK.step_lookup_cuda(qt, k, plo, phi),
+         il.step_lookup_torch(qt, k, plo, phi), "step_lookup")
+    r = lookup_numbers(lambda: IK.step_lookup_cuda(qt, k, plo, phi),
+                       lambda: il.step_lookup_torch(qt, k, plo, phi),
+                       lambda: table[torch.searchsorted(k, qt, right=True)],
+                       4 * BATCH + 12 * Pt + 8 * BATCH,
+                       BATCH * math.ceil(math.log2(Pt + 1)))
+    log_lookup_numbers("step_lookup", f"the top layer (Q={BATCH}, P={Pt})",
+                       card, r, launches["step_lookup"])
+    entries.append(lookup_kernel_entry("step_lookup",
+                                       launches["step_lookup"],
+                                       errs["step_lookup"], {BATCH: r}))
 
-    bt = [band[f] for f in ("node_keys", "x1", "y1", "m", "delta")]
-    got = IK.band_lookup_cuda(qt, *bt)
-    want_ = il.band_lookup_torch(qt, *bt)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(got, want_))
-    entries.append(lookup_kernel_entry(
-        "band_lookup", lambda: IK.band_lookup_cuda(qt, *bt),
-        lambda: il.band_lookup_torch(qt, *bt), None,
-        4 * Q + 20 * Pm + 8 * Q, Q * (math.ceil(math.log2(Pm + 1)) + 7),
-        launches["band_lookup"], errs["band_lookup"], card,
-        f"the band layer (Q={Q}, P={Pm})"))
+    # the band: the manual design's layer, and generation 0's where its
+    # bottom is a band layer
+    bands = {"the band layer": band}
+    g0 = planes["generation 0"][0]
+    if g0["kind"] == "band":
+        bands["generation 0's band layer"] = g0
+    at = {}
+    for i, (what, layer) in enumerate(bands.items()):
+        bt = [layer[f] for f in ("node_keys", "x1", "y1", "m", "delta")]
+        P = len(bt[0])
+        for Q, qt in qts.items():
+            held(IK.band_lookup_cuda(qt, *bt), il.band_lookup_torch(qt, *bt),
+                 f"band_lookup at Q={Q}, P={P}")
+            r = lookup_numbers(
+                lambda qt=qt, bt=bt: IK.band_lookup_cuda(qt, *bt),
+                lambda qt=qt, bt=bt: il.band_lookup_torch(qt, *bt), None,
+                12 * Q + 20 * P, Q * (math.ceil(math.log2(P + 1)) + 7))
+            log_lookup_numbers("band_lookup", f"{what} (Q={Q}, P={P})", card, r,
+                               launches["band_lookup"] if i == 0 else None)
+            if i == 0:
+                at[Q] = r
+    entries.append(lookup_kernel_entry("band_lookup", launches["band_lookup"],
+                                       errs["band_lookup"], at))
 
+    # the two-level layer: one launch a call, no PyTorch op before it
     k, plo, phi, table = step_parts(bottom)
-    base = il.segment_bases(k, qt)
-    got = IK.segmented_step_lookup_cuda(qt, base, k, plo, phi)
-    want_ = il.segmented_step_lookup_torch(qt, base, k, plo, phi)
+    kn = k.cpu().numpy()
+    lay = (k, bottom["piece_pos"])
+    n0 = IK.SEGMENTED.launches()
+    for _ in range(20):
+        il.lookup_step_layer(qts[BATCH], *lay)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(got, want_))
-    # bytes this batch needs: queries, bases and outputs, the keys of every
-    # segment it touches, the positions of every entry it picks
-    bases = np.unique(base.cpu().numpy()).astype(np.int64)
-    seg_keys = int(np.minimum(il.LANE, Pb - bases).sum())
-    picked = np.unique(np.maximum(np.searchsorted(
-        k.cpu().numpy(), q, side="right") - 1, 0)).size
+    counted = IK.SEGMENTED.launches() - n0
+    rows = trace_device_us(lambda: il.lookup_step_layer(qts[BATCH], *lay), 20)
+    if counted != 20 or (rows and not all(
+            "segmented_step_lookup_kernel" in nm for nm in rows)):
+        raise AssertionError(f"20 two-level layer calls: {counted} segmented "
+                             f"launches, device rows {sorted(rows)}")
+    log(f"the two-level layer call (P={Pb}, Q={BATCH}) on the card: 20 calls, "
+        f"{counted} segmented launches; device rows of a traced call: "
+        + (", ".join(sorted(rows)) if rows else "none held by the trace"))
+    at = {}
+    for Q, qt in qts.items():
+        held(IK.segmented_step_lookup_cuda(qt, k, plo, phi),
+             il.segmented_step_lookup_torch(qt, il.segment_bases(k, qt), k,
+                                            plo, phi),
+             f"segmented_step_lookup at Q={Q}")
+        at[Q] = lookup_numbers(
+            lambda qt=qt: IK.segmented_step_lookup_cuda(qt, k, plo, phi),
+            lambda qt=qt: il.segmented_step_lookup_torch(
+                qt, il.segment_bases(k, qt), k, plo, phi),
+            lambda qt=qt: table[torch.searchsorted(k, qt, right=True)],
+            segmented_bytes(kn, qs[Q]), Q * math.ceil(math.log2(Pb + 1)))
+        g = np.maximum(np.searchsorted(kn[::il.LANE], qs[Q], side="right")
+                       - 1, 0)
+        log_lookup_numbers(
+            "segmented_step_lookup", f"the bottom layer (Q={Q}, P={Pb}, "
+            f"{np.unique(g).size} segments touched)", card, at[Q],
+            launches["segmented_step_lookup"])
     entries.append(lookup_kernel_entry(
-        "segmented_step_lookup",
-        lambda: IK.segmented_step_lookup_cuda(qt, base, k, plo, phi),
-        lambda: il.segmented_step_lookup_torch(qt, base, k, plo, phi),
-        lambda: table[torch.searchsorted(k, qt, right=True)],
-        16 * Q + 4 * seg_keys + 8 * picked,
-        Q * (int(math.log2(il.LANE)) + 1),
-        launches["segmented_step_lookup"], errs["segmented_step_lookup"],
-        card, f"the bottom layer (Q={Q}, P={Pb}, {len(bases)} segments "
-        f"touched)"))
+        "segmented_step_lookup", launches["segmented_step_lookup"],
+        errs["segmented_step_lookup"], at))
     return entries
 
 
@@ -2140,7 +2286,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     attention = phase(11, llm_phase, args, device, card, attn_err)
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s (limit "
+        f"1200 s, the kernels' build included)")
     print(json.dumps({"kernels": [fused, scores, *lookups, *attention]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #define BLOCK_Q 256
 #define BLOCKS_PER_SM 8
+#define MAX_DEVICES 64
 #ifndef MAX_P
 #error "build with -DMAX_P=<layer width cap> (kernel.py passes it)"
 #endif
@@ -65,6 +68,21 @@ step_lookup_kernel(const int32_t* __restrict__ queries, int Q,
     }
 }
 
+// The multiprocessor count of the current device, read once per device.
+static int sm_count() {
+    static std::atomic<int> cached[MAX_DEVICES];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= MAX_DEVICES) dev = 0;
+    int n = cached[dev].load(std::memory_order_relaxed);
+    if (n == 0) {
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+        n = n > 0 ? n : 1;
+        cached[dev].store(n, std::memory_order_relaxed);
+    }
+    return n;
+}
+
 extern "C" int step_lookup_launch(const void* queries, int Q,
                                   const void* keys, const void* pos_lo,
                                   const void* pos_hi, int P,
@@ -72,11 +90,9 @@ extern "C" int step_lookup_launch(const void* queries, int Q,
     if (Q <= 0 || P <= 0 || P > MAX_P) {
         return (int)cudaErrorInvalidValue;
     }
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int sms = sm_count();
     int blocks = (Q + BLOCK_Q - 1) / BLOCK_Q;
-    if (sms > 0 && blocks > sms * BLOCKS_PER_SM) {
+    if (blocks > sms * BLOCKS_PER_SM) {
         blocks = sms * BLOCKS_PER_SM;
     }
     step_lookup_kernel<<<blocks, BLOCK_Q, 0, (cudaStream_t)stream>>>(

@@ -86,6 +86,7 @@ class CudaLibrary:
         self.build_log = ""   # nvcc's output of the build this process ran
         self._mu = threading.Lock()
         self._lib = None
+        self._fns = {}
         self._path = None
         self._launches = 0
 
@@ -124,13 +125,15 @@ class CudaLibrary:
                                        f"{' '.join(cmd)}\n{self.build_log}")
                 os.replace(tmp, out)    # atomic: no reader sees a torn .so
             lib = ctypes.CDLL(str(out))
+            fns = {}
             for suffix, argtypes in self.entries.items():
-                fn = getattr(lib, f"{self.name}_{suffix}")
+                fn = fns[suffix] = getattr(lib, f"{self.name}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             err = getattr(lib, f"{self.name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
+            self._fns = fns
             self._path = out
             self._lib = lib
             return out
@@ -142,14 +145,17 @@ class CudaLibrary:
         the current stream of ``device`` → True.  An entry point may
         decline its input without launching by returning ``declined``:
         then → False, and nothing is counted."""
-        self.build()
+        if self._lib is None:
+            self.build()
         here = torch.cuda.current_device()
         if device.index is not None and device.index != here:
             with torch.cuda.device(device):     # launch in its context
                 return self.launch(device, *args, entry=entry,
                                    declined=declined)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(self._lib, f"{self.name}_{entry}")(*args, stream)
+        # the raw handle of the current stream: no torch.cuda.Stream object
+        # a launch
+        stream = torch._C._cuda_getCurrentRawStream(here)
+        err = self._fns[entry](*args, stream)
         if declined is not None and err == declined:
             return False
         if err != 0:

@@ -6,7 +6,7 @@ from .kernel import (band_lookup_cuda, segmented_step_lookup_cuda,
                      step_lookup_cuda)
 from .ops import (LANE, MAX_VMEM_ENTRIES, device_arrays_from_design,
                   lookup_band_layer, lookup_step_layer, segment_bases,
-                  traverse_index)
+                  traverse_index, two_level_torch)
 from .ref import (band_lookup_torch, segmented_step_lookup_torch,
                   step_lookup_torch)
 
@@ -15,4 +15,5 @@ __all__ = ["LANE", "MAX_VMEM_ENTRIES", "band_lookup_cuda",
            "lookup_band_layer", "lookup_step_layer", "ref",
            "segment_bases", "segmented_step_lookup_cuda",
            "segmented_step_lookup_torch",
-           "step_lookup_cuda", "step_lookup_torch", "traverse_index"]
+           "step_lookup_cuda", "step_lookup_torch", "traverse_index",
+           "two_level_torch"]

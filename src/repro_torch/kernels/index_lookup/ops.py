@@ -3,8 +3,8 @@
 ``lookup_step_layer`` / ``lookup_band_layer`` look one layer up for a
 batch of queries.  A layer of at most :data:`MAX_VMEM_ENTRIES` entries
 takes the single-call kernel; a wider step layer takes the two-level
-scheme (a search over the sampled grid of every ``LANE``-th key, then the
-segmented kernel over each query's own segment).  ``traverse_index``
+scheme (a search over the sampled grid of every ``LANE``-th key, then each
+query's own segment), which the segmented kernel runs in one launch.  ``traverse_index``
 chains the layers top-down.  Dispatch is by the tensors' device: a CUDA
 tensor launches the hand-written kernel (or raises), a CPU tensor runs the
 plain PyTorch version, which is for tests.
@@ -44,12 +44,20 @@ def lookup_step_layer(queries, piece_keys, piece_pos):
     if P <= MAX_VMEM_ENTRIES:
         fn = _pick(queries, kernel.step_lookup_cuda, ref.step_lookup_torch)
         return fn(queries, piece_keys, pos_lo, pos_hi)
-    # two-level: the sampled grid picks each query's segment, the kernel
-    # searches only that segment (clipped at P − 1)
-    fn = _pick(queries, kernel.segmented_step_lookup_cuda,
-               ref.segmented_step_lookup_torch)
-    return fn(queries, segment_bases(piece_keys, queries), piece_keys,
-              pos_lo, pos_hi)
+    # two-level: the sampled grid picks each query's segment, then only
+    # that segment (clipped at P − 1) is searched; on the card one launch
+    # does both levels
+    fn = _pick(queries, kernel.segmented_step_lookup_cuda, two_level_torch)
+    return fn(queries, piece_keys, pos_lo, pos_hi)
+
+
+def two_level_torch(queries, piece_keys, pos_lo, pos_hi):
+    """The plain version of the two-level scheme: level 1
+    (:func:`segment_bases`), then level 2
+    (:func:`ref.segmented_step_lookup_torch`)."""
+    return ref.segmented_step_lookup_torch(
+        queries, segment_bases(piece_keys, queries), piece_keys, pos_lo,
+        pos_hi, seg=LANE)
 
 
 def segment_bases(piece_keys, queries):

@@ -145,7 +145,7 @@ def test_cpu_tensors_never_reach_a_kernel():
     for fn, args in ((K.step_lookup_cuda, (q, keys, pos[:-1], pos[1:])),
                      (K.band_lookup_cuda, _band_case(4, 30, 5, False)),
                      (K.segmented_step_lookup_cuda,
-                      (q, np.zeros_like(q), keys, pos[:-1], pos[1:]))):
+                      (q, keys, pos[:-1], pos[1:]))):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(*(_t(a) for a in args))
     with pytest.raises(ValueError):

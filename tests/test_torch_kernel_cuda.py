@@ -204,7 +204,7 @@ def test_lookup_kernels_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError):
         IK.step_lookup_cuda(qt, big, big, big)
     with pytest.raises(ValueError):
-        IK.segmented_step_lookup_cuda(qt, qt[:3], kt, pt[:-1], pt[1:])
+        IK.segmented_step_lookup_cuda(qt, kt, pt[:-1], pt[1:-1])
     assert [lib.launches() for lib in IK.LIBS] == before
 
 
@@ -518,3 +518,71 @@ def test_fused_descent_staging_is_shared_safely_across_threads(card):
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads) and not bad
+
+
+# ---------------------------------------------------------------------------
+# the redesigned band and segmented-step kernels
+# ---------------------------------------------------------------------------
+I32_MAX = 2**31 - 1
+EDGE_Q = [1, 31, 32, 33, 4097, 1 << 20]
+
+
+def _edge_queries(rng, keys, Q):
+    """Q queries: random, then (as far as Q holds them) below the first
+    key, the last key, above it, 2^31 − 1 and every grid key."""
+    q = rng.integers(1, 2**31 - 2, Q).astype(np.int32)
+    edges = np.concatenate([[0, keys[-1], keys[-1] + 1, I32_MAX],
+                            keys[::il.LANE]]).astype(np.int32)
+    n = min(Q, len(edges))
+    q[:n] = edges[:n]
+    return q
+
+
+def _one_launch(lib, fn):
+    before = lib.launches()
+    out = fn()
+    torch.cuda.synchronize()
+    assert lib.launches() == before + 1
+    return out
+
+
+@pytest.mark.parametrize("P", [1, 171, 723, 4096])
+@pytest.mark.parametrize("Q", EDGE_Q)
+def test_band_kernel_bit_equal_at_edges(card, P, Q):
+    rng = np.random.default_rng(P * 7 + Q)
+    arrays = _layer(rng, P, True)
+    ts = _on(card, _edge_queries(rng, arrays[0], Q), *arrays)
+    lo, hi = _one_launch(IK.BAND, lambda: il.lookup_band_layer(*ts))
+    plo, phi = il.band_lookup_torch(*ts)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+
+
+@pytest.mark.parametrize("P", [4097, 4224, 4225, 20_000, 81_298])
+@pytest.mark.parametrize("Q", EDGE_Q)
+def test_segmented_kernel_bit_equal_at_edges(card, P, Q):
+    rng = np.random.default_rng(P * 5 + Q)
+    keys, pos = _layer(rng, P, False)
+    qt, kt, pt = _on(card, _edge_queries(rng, keys, Q), keys, pos)
+    lo, hi = _one_launch(IK.SEGMENTED,
+                         lambda: il.lookup_step_layer(qt, kt, pt))
+    plo, phi = il.segmented_step_lookup_torch(
+        qt, il.segment_bases(kt, qt), kt, pt[:-1], pt[1:])
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+
+
+@pytest.mark.parametrize("over", [0, 1])
+def test_segmented_grid_across_the_shared_memory_cap(card, over):
+    """At the cap the block stages the whole grid; one entry past it the
+    kernel searches the grid in global memory.  Both equal the plain
+    two-level version."""
+    P = IK.grid_cap() * il.LANE + over
+    rng = np.random.default_rng(over)
+    keys = (1 + np.concatenate([[0], np.cumsum(rng.integers(
+        1, (2**31 - 2) // P, P - 1))])).astype(np.int32)
+    pos = np.sort(rng.integers(0, 2**30, P + 1)).astype(np.int32)
+    qt, kt, pt = _on(card, _edge_queries(rng, keys, 70_000), keys, pos)
+    lo, hi = _one_launch(IK.SEGMENTED,
+                         lambda: il.lookup_step_layer(qt, kt, pt))
+    plo, phi = il.segmented_step_lookup_torch(
+        qt, il.segment_bases(kt, qt), kt, pt[:-1], pt[1:])
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
