@@ -6,7 +6,7 @@ serving paths on one NVIDIA card.
                           [--tune-draws 21000000]
 
 Phases (none catches its own failure; any failure exits non-zero), run in
-the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
+the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 12:
 
 1. Card: name and power limit from ``nvidia-smi``.
 2. Build: compile all seven kernels from ``src/repro_torch/csrc`` through
@@ -29,11 +29,11 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
    ``affine_scores_torch`` to rtol 1e-5 and the float64 oracle to rtol
    3e-5, and a second launch must equal the first bit for bit.
 5. The index-lookup kernels against their plain versions: step layers of
-   P in 1/64/127/128/1000/4096, band layers of P in
+   P in 1/2/31/32/33/64/127/128/1000/4095/4096, band layers of P in
    1/10/171/300/723/1024/1025/4096, two-level step layers of P in
    4097/4224/4225/20000/81000/823133 and at the widths whose grid (one
    key in 128) just fits and just overflows a block's shared memory, each
-   at Q in 1/255/256/257/4097/65536/2^20 (queries below the first key, at
+   at Q in 1/255/256/257/4096/4097/65536/2^20 (queries below the first key, at
    the last, above it, 2^31 - 1 and every grid key among them); every
    kernel must equal its plain version bit for bit (the segmented kernel,
    which runs both levels, the plain ``segment_bases`` +
@@ -76,8 +76,9 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
    one launch a layer and batch; each batch's host split (int32 cast,
    copy in, each layer's call, copy out, widening).  The two-level layer
    call must launch its kernel once and nothing else (20 calls counted,
-   one traced).  Band and segmented kernels are timed at the stream's
-   batch and at 2^20 keys (the band also at generation 0's width).
+   one traced).  Every lookup kernel is timed at the stream's batch and
+   at 2^20 keys: the step kernel at the top layer (P = 2) and at a
+   4,096-wide layer, the band also at generation 0's width.
 10. The attention kernels against their plain versions: decode at
    (query, kv) heads 40/8, 32/2 and 8/8, D in 128/64, S in
    1/127/128/4096/32768 with per-row lengths from 1..S and one row of
@@ -108,8 +109,26 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 11, 12:
    launches per prefill call and 40 decode launches per decode step, and
    no plain attention runs; then the page table of the loop's requests
    tuned for ``h100_hbm`` on the card.
+13. The sharded fleet on the card, after phase 9: the tuning phase's keys
+   with 1 KiB records (the record size of the JAX package's fleet
+   scenario, benchmarks/serve_bench.py:383) as 4 key-range shards, each
+   tuned on the card with the default λ grid (``Fleet.tune(D,
+   "azure_ssd", FleetSpec(n_shards=4, tune=TuneSpec(k=5,
+   page_bytes=4096), serve=ServeSpec(persist_stats=True),
+   cache_budget_bytes=B)).build()``, B half the shards' cacheable
+   working sets together), saved, reopened with ``Fleet.open(dir,
+   data=D)`` and served on the card over a uniform and a Zipf(1.1)
+   stream of 64 batches x 4096 keys through ``lookup_batches``: every
+   range must contain its record and equal a numpy-backend
+   ``FleetService``'s, a 2,000-key sample must equal ``Fleet.lookup``,
+   exactly one ``fused_descent`` launch a non-empty shard sub-batch and
+   no plain descent; a shard whose disk dies after open must raise
+   ``ShardUnavailableError``, and ``partial_results=True`` must mask
+   exactly its keys and leave the others unchanged.
 12. Numbers: each phase's wall; sizes, build/generation times, per-stream
-   qps, lookup wall, descent seconds, roofline and hit rate; the wall per
+   qps, lookup wall, descent seconds, roofline and hit rate; the fleet's
+   tune and save walls, lookups/s a stream, each shard's hit rate and
+   descent seconds and the cache plans; the wall per
    call of the engine's descent and of the one library call inside it
    (inside each pipelined stream and alone); per tune its wall, sweep
    seconds, stats and the device ranking's copy/kernel/readback split;
@@ -159,15 +178,16 @@ LOOKUP_KERNELS = {                  # name -> (source, the TPU kernel it replace
         "src/repro_torch/csrc/segmented_step_lookup.cu",
         "src/repro/kernels/index_lookup/kernel.py:136"),
 }
-LOOKUP_STEP_P = (1, 64, 127, 128, 1000, 4096)
+LOOKUP_STEP_P = (1, 2, 31, 32, 33, 64, 127, 128, 1000, 4095, 4096)
 # band widths: phase 9's two (171, 723) and the parameter-staging edge
 LOOKUP_BAND_P = (1, 10, 171, 300, 723, 1024, 1025, 4096)
 # two-level widths: past the cap, a 33rd segment of 1 and of 2 keys
 # (4224 = 33 x 128), ~the 20.8 M-key bottom layer, phase 6's; phase 5 adds
 # the widths whose grid just fits and just overflows a block's shared memory
 LOOKUP_SEG_P = (4097, 4224, 4225, 20_000, 81_000, 823_133)
-LOOKUP_Q = (1, 255, 256, 257, 4097, 65536, 1 << 20)
+LOOKUP_Q = (1, 255, 256, 257, 4096, 4097, 65536, 1 << 20)
 LOOKUP_BIG_Q = 1 << 20           # phase 9's second batch size
+LOOKUP_WIDE_STEP_P = 4096        # phase 9's second step width (phase 5's widest)
 LOOP_BATCHES = 64
 KERNEL_REPLACES = "src/repro/kernels/fused_descent/kernel.py:96"
 SCORE_SOURCE = "src/repro_torch/csrc/candidate_score.cu"
@@ -175,7 +195,8 @@ SCORE_REPLACES = "src/repro/kernels/candidate_score/kernel.py:34"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 RECORD_BYTES = 16
-N_BATCHES = 256
+N_BATCHES = 256                  # phase 9's stream
+SERVE_BATCHES = 256              # phase 6's streams
 BATCH = 4096
 ZIPF_A = 1.1
 DRAWS = 230_000_000              # ~200 M unique keys: the SOSD scale
@@ -183,6 +204,15 @@ TUNE_DRAWS = 21_000_000          # ~20 M unique keys: the tuning phase
 TUNE_TIERS = ("azure_ssd", "azure_nfs", "azure_hdd")
 P99 = {"p": 0.99, "weight": 1.0}
 TUNE_BATCHES = 64
+FLEET_SHARDS = 4
+FLEET_K = 5                      # each shard's Alg. 2 beam
+FLEET_BATCHES = 64
+# the record size of the JAX package's fleet scenario
+# (benchmarks/serve_bench.py:376-383): 1 KiB records put each shard's
+# optimum at two layers with a disk-resident bottom layer, where a cache
+# budget is a real resource (at 16-byte records every 5.2 M-key shard
+# tunes to one resident band layer: no read to cache)
+FLEET_RECORD = 1024
 SCORE_RTOL_PLAIN = 1e-5          # kernel vs plain float32 (sum order)
 SCORE_RTOL_REF = 3e-5            # kernel vs float64 oracle (the JAX
                                  # package's tolerance for its scorers)
@@ -448,11 +478,12 @@ def serve_stream(path: str, keys: np.ndarray, idx: np.ndarray, spec,
     return np.concatenate(out), report, fused
 
 
-def check_ranges(ranges: np.ndarray, idx: np.ndarray, name: str) -> None:
+def check_ranges(ranges: np.ndarray, idx: np.ndarray, name: str,
+                 record: int = RECORD_BYTES) -> None:
     assert ranges.shape == (len(idx), 2) and ranges.dtype == np.int64, \
         (ranges.shape, ranges.dtype)
-    rec = RECORD_BYTES * idx.astype(np.int64)
-    bad = ~((ranges[:, 0] <= rec) & (ranges[:, 1] >= rec + RECORD_BYTES))
+    rec = record * idx.astype(np.int64)
+    bad = ~((ranges[:, 0] <= rec) & (ranges[:, 1] >= rec + record))
     if bad.any():
         i = int(np.flatnonzero(bad)[0])
         raise AssertionError(f"{name}: {int(bad.sum())} ranges miss their "
@@ -777,7 +808,7 @@ def serve_phase(args, device, card, max_err: float) -> dict:
 
         spec = ServeSpec(resident_layers=2, cache_bytes=(1 << 20, 8 << 20),
                          pipeline_depth=2)
-        streams = make_streams(len(keys), args.seed, N_BATCHES, BATCH)
+        streams = make_streams(len(keys), args.seed, SERVE_BATCHES, BATCH)
         # the engine's own descent serves; each call of it, and of the one
         # library call inside it, is timed around the real function
         engine_descent = IS.fused_descent_with_backend
@@ -792,7 +823,7 @@ def serve_phase(args, device, card, max_err: float) -> dict:
                 K.fused_descent_serve = timing(
                     library_call, splits[name]["library_call"])
                 served[name], reports[name], fused[name] = serve_stream(
-                    path, keys, idx, spec, None, N_BATCHES)
+                    path, keys, idx, spec, None, SERVE_BATCHES)
         finally:
             IS.fused_descent_with_backend = engine_descent
             K.fused_descent_serve = library_call
@@ -813,7 +844,7 @@ def serve_phase(args, device, card, max_err: float) -> dict:
             check_ranges(served[name], idx, name)
             ref_ranges, _, _ = serve_stream(
                 path, keys, idx, spec.replace(backend="numpy"), None,
-                N_BATCHES)
+                SERVE_BATCHES)
             if not np.array_equal(served[name], ref_ranges):
                 raise AssertionError(f"{name}: cuda ranges != numpy ranges")
         sample = streams["uniform"][:2000]
@@ -835,7 +866,7 @@ def serve_phase(args, device, card, max_err: float) -> dict:
         mod = fused["uniform"]
         L, P = mod.keys.shape
         kinds = mod.kinds.cpu().numpy()
-        for b in range(N_BATCHES):
+        for b in range(SERVE_BATCHES):
             qt = torch.from_numpy(keys[streams["uniform"][
                 b * BATCH:(b + 1) * BATCH]].astype(np.int32)).to(device)
             klo, khi = mod(qt)
@@ -851,7 +882,7 @@ def serve_phase(args, device, card, max_err: float) -> dict:
         run = timing(FO.fused_descent_with_backend, alone["descent"])
         K.fused_descent_serve = timing(library_call, alone["library_call"])
         try:
-            for b in range(N_BATCHES):
+            for b in range(SERVE_BATCHES):
                 _, _, used = run(None, keys[streams["uniform"][
                     b * BATCH:(b + 1) * BATCH]], module=mod)
                 assert used == "cuda", f"batch {b} declined by the descent"
@@ -1497,7 +1528,8 @@ def lookup_kernel_entry(name: str, launches: int, err: float,
                         at: dict) -> dict:
     """The kernels-line entry of one index-lookup kernel from its numbers
     at the stream's batch (``at[BATCH]``), with the 2^20-key batch's under
-    ``at_2^20`` where it was measured."""
+    ``at_2^20`` and any other shape's under ``at_<shape>`` where they were
+    measured."""
     r = at[BATCH]
     source, replaces = LOOKUP_KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
@@ -1505,10 +1537,11 @@ def lookup_kernel_entry(name: str, launches: int, err: float,
              "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"]}
-    if LOOKUP_BIG_Q in at:
-        entry["at_2^20"] = {k: at[LOOKUP_BIG_Q][k] for k in (
-            "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "wrapper_ms")}
+    for shape, r in at.items():
+        if shape != BATCH:
+            entry["at_2^20" if shape == LOOKUP_BIG_Q else f"at_{shape}"] = {
+                k: r[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "wrapper_ms")}
     return entry
 
 
@@ -1595,20 +1628,39 @@ def alg1_phase(args, device, card, tuned: dict, gen1, errs: dict) -> list:
         return k, plo, phi, table
 
     entries = []
-    k, plo, phi, table = step_parts(top)
-    qt = qts[BATCH]
-    held(IK.step_lookup_cuda(qt, k, plo, phi),
-         il.step_lookup_torch(qt, k, plo, phi), "step_lookup")
-    r = lookup_numbers(lambda: IK.step_lookup_cuda(qt, k, plo, phi),
-                       lambda: il.step_lookup_torch(qt, k, plo, phi),
-                       lambda: table[torch.searchsorted(k, qt, right=True)],
-                       4 * BATCH + 12 * Pt + 8 * BATCH,
-                       BATCH * math.ceil(math.log2(Pt + 1)))
-    log_lookup_numbers("step_lookup", f"the top layer (Q={BATCH}, P={Pt})",
-                       card, r, launches["step_lookup"])
+    # the step kernel at the path's top layer and at a layer of phase 5's
+    # widest single-call width, both batch sizes
+    wide_keys, wide_pos = lookup_layer(np.random.default_rng(args.seed + 8),
+                                       LOOKUP_WIDE_STEP_P, band=False)
+    wide = {"piece_keys": torch.from_numpy(wide_keys).to(device),
+            "piece_pos": torch.from_numpy(wide_pos).to(device)}
+    at = {}
+    for what, layer in (("the top layer", top), ("a 4096-wide layer", wide)):
+        k, plo, phi, table = step_parts(layer)
+        P = len(k)
+        for Q, qt in qts.items():
+            held(IK.step_lookup_cuda(qt, k, plo, phi),
+                 il.step_lookup_torch(qt, k, plo, phi),
+                 f"step_lookup at Q={Q}, P={P}")
+            r = lookup_numbers(
+                lambda qt=qt, k=k, plo=plo, phi=phi: IK.step_lookup_cuda(
+                    qt, k, plo, phi),
+                lambda qt=qt, k=k, plo=plo, phi=phi: il.step_lookup_torch(
+                    qt, k, plo, phi),
+                lambda qt=qt, k=k, table=table: table[torch.searchsorted(
+                    k, qt, right=True)],
+                # queries, keys, lo and hi, and the P + 1 words of
+                # piece_pos that pos_lo and pos_hi are two views of
+                12 * Q + 4 * P + 4 * (P + 1),
+                Q * math.ceil(math.log2(P + 1)))
+            top_layer = layer is top
+            log_lookup_numbers("step_lookup", f"{what} (Q={Q}, P={P})", card,
+                               r, launches["step_lookup"] if top_layer
+                               else None)
+            at[Q if top_layer else f"P={P} Q={Q}"] = r
     entries.append(lookup_kernel_entry("step_lookup",
                                        launches["step_lookup"],
-                                       errs["step_lookup"], {BATCH: r}))
+                                       errs["step_lookup"], at))
 
     # the band: the manual design's layer, and generation 0's where its
     # bottom is a band layer
@@ -1673,6 +1725,187 @@ def alg1_phase(args, device, card, tuned: dict, gen1, errs: dict) -> list:
         "segmented_step_lookup", launches["segmented_step_lookup"],
         errs["segmented_step_lookup"], at))
     return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the sharded fleet on the card
+# ---------------------------------------------------------------------------
+def dies_after_open_factory(sick_path: str):
+    """A ``path -> StorageBackend`` factory whose backend for
+    ``sick_path`` is healthy while its service opens and raises EIO on
+    every read once ``armed["on"]`` is set → (factory, armed)."""
+    import errno
+
+    from repro_torch.serve import FileBackend
+    armed = {"on": False}
+
+    class DiesAfterOpen(FileBackend):
+        def pread(self, nbytes, offset):
+            if armed["on"]:
+                raise OSError(errno.EIO, "injected post-open EIO")
+            return super().pread(nbytes, offset)
+
+    def make(path):
+        return DiesAfterOpen(path) if path == sick_path else FileBackend(path)
+    return make, armed
+
+
+def fleet_phase(args, device, card, tuned: dict) -> int:
+    """Phase 13: the tuning phase's keys as a fleet of FLEET_SHARDS
+    key-range shards, each tuned on the card (``Fleet.tune(...).build()``),
+    saved with a global cache budget below the shards' cacheable working
+    sets together, reopened and served on the card over a uniform and a
+    Zipf(1.1) stream; checked against a numpy-backend ``FleetService``,
+    ``Fleet.lookup`` and a shard that dies after open → the
+    ``fused_descent`` launches of the served streams."""
+    import torch
+
+    from repro_torch.api import ServeSpec, TuneSpec
+    from repro_torch.core import PROFILES, KeyPositions
+    from repro_torch.fleet import Fleet, FleetSpec, ShardUnavailableError
+    from repro_torch.kernels.fused_descent import kernel as FK
+    from repro_torch.kernels.fused_descent import ref as FR
+    from repro_torch.serve import cacheable_working_set
+
+    keys = tuned["keys"]
+    D = KeyPositions.fixed_record(keys, FLEET_RECORD)
+    log(f"fleet: the tuning phase's {D.n} keys with {FLEET_RECORD}-byte "
+        f"records")
+    spec = FleetSpec(n_shards=FLEET_SHARDS,
+                     tune=TuneSpec(k=FLEET_K, page_bytes=4096),
+                     serve=ServeSpec(persist_stats=True))
+    res = spec.serve.resident_layers
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        t0 = time.perf_counter()
+        built = Fleet.tune(D, "azure_ssd", spec).build()
+        t_tune = time.perf_counter() - t0
+        # the global budget: half the shards' cacheable working sets
+        # together, in whole pages, so the allocator has to choose
+        sets = [d.working_set for d in built.allocate_cache(1 << 62).demands]
+        budget = max(sum(sets) // 2 // spec.quantum, 1) * spec.quantum
+        fleet = Fleet(spec=spec.replace(cache_budget_bytes=budget),
+                      shard_map=built.shard_map, shards=built.shards,
+                      bases=built.bases, profile=PROFILES["azure_ssd"],
+                      profile_name="azure_ssd")
+        t0 = time.perf_counter()
+        fleet.save(workdir)
+        t_save = time.perf_counter() - t0
+        log(f"fleet: {FLEET_SHARDS} shards of {D.n} keys tuned on the card "
+            f"in {t_tune:.1f} s, saved in {t_save:.1f} s; designs "
+            + "; ".join(f"shard {i}: {x.design.describe()} "
+                        f"({x.design.data.n} keys, cost {x.cost!r})"
+                        for i, x in enumerate(fleet.shards)))
+        opened = Fleet.open(workdir, data=D)
+        file_sets = [cacheable_working_set(x.file_meta, res)
+                     for x in opened.shards]
+        assert budget < sum(file_sets), (budget, file_sets)
+        log(f"fleet cache budget {budget} B against the shards' cacheable "
+            f"working sets {file_sets} B ({sum(file_sets)} B together)")
+
+        streams = make_streams(D.n, args.seed + 9, FLEET_BATCHES, BATCH)
+        sub_batches = 0
+        served, reports, plans = {}, {}, {}
+        plain = {"torch": 0, "numpy": 0}
+        torch_fn, numpy_fn = FR.fused_descent_torch, FR.fused_descent_ref
+
+        def counted(fn, what):
+            def call(*a, **kw):
+                plain[what] += 1
+                return fn(*a, **kw)
+            return call
+        FR.fused_descent_torch = counted(torch_fn, "torch")
+        FR.fused_descent_ref = counted(numpy_fn, "numpy")
+        FK.reset_launches()                   # the fleet's path starts here
+        try:
+            for name, idx in streams.items():
+                batches = np.split(keys[idx], FLEET_BATCHES)
+                sub_batches += sum(len(opened.shard_map.sub_batches(b))
+                                   for b in batches)
+                with opened.serve() as svc:
+                    plans[name] = svc.plan.to_dict()
+                    t0 = time.perf_counter()
+                    out = svc.lookup_batches(batches)
+                    wall = time.perf_counter() - t0
+                    shards = []
+                    for i, sh in enumerate(svc.services):
+                        st = sh.stats
+                        assert sh.device.type == "cuda" and sh.device_active, i
+                        assert st.device_batches == st.batches, (i, st)
+                        shards.append({
+                            "shard": i, "batches": int(st.batches),
+                            "queries": int(st.queries),
+                            "hit_rate": st.hit_rate,
+                            "descent_seconds": st.descent_seconds,
+                            "cache_bytes": [c * sh.page_bytes for c in
+                                            sh.cache.cap_pages]})
+                served[name] = np.concatenate(out)
+                reports[name] = {"lookups": len(idx), "wall_seconds": wall,
+                                 "lookups_per_s": len(idx) / wall,
+                                 "shards": shards}
+        finally:
+            FR.fused_descent_torch, FR.fused_descent_ref = torch_fn, numpy_fn
+        launches = FK.launches()              # ... and ends here
+        if launches != sub_batches or any(plain.values()):
+            raise AssertionError(f"fleet: {launches} fused_descent launches "
+                                 f"for {sub_batches} shard sub-batches, "
+                                 f"plain descents {plain}")
+        for name, r in reports.items():
+            log(f"fleet stream {name}: " + json.dumps(r))
+        # the second stream's service weighs the first's persisted traffic
+        for name, plan in plans.items():
+            log(f"fleet cache plan of the {name} stream's service: "
+                + json.dumps(plan))
+
+        # -- what comes out is right -------------------------------------
+        for name, idx in streams.items():
+            check_ranges(served[name], idx, f"fleet {name}", FLEET_RECORD)
+            with opened.serve(backend="numpy") as svc:
+                ref = np.concatenate(svc.lookup_batches(
+                    np.split(keys[idx], FLEET_BATCHES)))
+            if not np.array_equal(served[name], ref):
+                raise AssertionError(f"fleet {name}: cuda ranges != numpy "
+                                     f"ranges")
+        sample = streams["uniform"][:2000]
+        if not np.array_equal(served["uniform"][:2000],
+                              opened.lookup(keys[sample])):
+            raise AssertionError("fleet ranges != Fleet.lookup")
+
+        # -- failure isolation: one shard's disk dies after open ----------
+        sick = FLEET_SHARDS // 2
+        q = keys[streams["uniform"][:BATCH]]
+        with opened.serve(persist_stats=False) as svc:
+            want = svc.lookup(q)
+        make, armed = dies_after_open_factory(opened.shards[sick].path)
+        with opened.serve(persist_stats=False, backend_factories=make) as svc:
+            armed["on"] = True
+            try:
+                svc.lookup(q)
+            except ShardUnavailableError as e:
+                assert e.shard == sick, e.shard
+            else:
+                raise AssertionError("a dead shard did not raise "
+                                     "ShardUnavailableError")
+            out, avail = svc.lookup(q, partial_results=True)
+            routed = opened.shard_map.route(q) == sick
+            assert routed.any() and svc.healthy == [
+                i != sick for i in range(FLEET_SHARDS)], svc.healthy
+            if not (np.array_equal(avail, ~routed)
+                    and np.array_equal(out[avail], want[avail])
+                    and (out[~avail] == -1).all()):
+                raise AssertionError("partial results do not mask exactly "
+                                     "the dead shard's keys")
+        opened.close()
+        fleet.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"fleet path: {2 * FLEET_BATCHES} batches, {sub_batches} shard "
+        f"sub-batches, {launches} fused_descent launches, no plain descent; "
+        f"ranges contain every record, equal the numpy backend's, and a "
+        f"2000-key sample equals Fleet.lookup; a shard dead after open "
+        f"raises ShardUnavailableError and partial results mask exactly its "
+        f"{int(routed.sum())} of {BATCH} keys")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2282,6 +2515,7 @@ def main(argv=None) -> int:
     scores, tuned = phase(7, tune_phase, args, device, card, cs_err)
     gen1 = phase(8, loop_phase, args, tuned)
     lookups = phase(9, alg1_phase, args, device, card, tuned, gen1, il_err)
+    fused["launches"] += phase(13, fleet_phase, args, device, card, tuned)
     del tuned, gen1                     # the card's memory, freed first
     gc.collect()
     torch.cuda.empty_cache()

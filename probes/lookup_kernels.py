@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""The band and segmented-step lookup kernels on one card, for two trees in
-turns: the port as committed here, and an earlier commit of the repo
-unpacked into a directory of this checkout.
+"""The step, band and segmented-step lookup kernels on one card, for two
+trees in turns: the port as committed here, and an earlier commit of the
+repo unpacked into a directory of this checkout.
 
     git archive <commit> | tar -x -C build/parent
     python3 probes/lookup_kernels.py [--parent build/parent] [--rounds 3]
+                                     [--kernels step,band,segmented]
                                      [--json PATH]
-    python3 probes/lookup_kernels.py --sweep [--json PATH]
+    python3 probes/lookup_kernels.py --sweep [--kernels ...] [--json PATH]
 
 Each run is a fresh process on one tree, in rounds whose order alternates
 (parent, change; then change, parent; ...).  The layers are those of
@@ -14,10 +15,13 @@ Each run is a fresh process on one tree, in rounds whose order alternates
 ``build/probes/`` for every run: the gstep(8, 4096) <- gband(1024) <-
 gstep(8, 4096) design over the tuning phase's ~20.8 M keys (its 171-node
 band layer and its 81,298-entry bottom step layer, which takes the
-two-level path) and a 723-node band layer (the width of the loop
-generations' band, from ``chip_smoke.lookup_layer``).  The queries are
-stored keys, uniform over the collection: a 4,096-key batch and a
-2^20-key batch.
+two-level path; its 2-entry top step layer, the path's step layer), a
+723-node band layer (the width of the loop generations' band, from
+``chip_smoke.lookup_layer``) and step layers of 1,000 and 4,096 entries
+(the widest a single call takes) from the same function.  The queries
+are stored keys, uniform over the collection: a 4,096-key batch and a
+2^20-key batch.  ``--kernels`` picks the kernels a run takes (all three
+unless named).
 
 For each layer and batch a run takes, with this checkout's timers for both
 trees (``chip_smoke.cold_device_ms`` and ``device_ms_per_call``: CUPTI
@@ -27,6 +31,8 @@ back):
 * ``kernel``: the tree's kernel wrapper alone (for the parent's segmented
   kernel, with the segment starts computed beforehand, as its wrapper
   takes them);
+* ``library`` (step layers): the yardstick, ``torch.searchsorted`` and a
+  gather from a table of (pos_lo, pos_hi) rows, L2-cold;
 * ``layer``: the tree's layer call (``lookup_band_layer`` /
   ``lookup_step_layer``), all the device work one call queues (for the
   parent's two-level path, its level-1 PyTorch ops and the kernel);
@@ -37,7 +43,8 @@ back):
 
 With ``--sweep``, one process on this tree instead: each kernel built
 again from a copy of its source under ``build/probes/`` with other launch
-geometries written into its ``#define`` lines (band ``BLOCK_Q``,
+geometries written into its ``#define`` lines (step ``WIDE_BLOCK``,
+``WIDE_UP_TO``, ``DEEP_BLOCK``, ``DEEP_PER_SM``, ``DEEP_ITEMS``; band ``BLOCK_Q``,
 ``BLOCKS_PER_SM``, ``DEEP_ITEMS``; segmented ``WIDE_BLOCK``,
 ``WIDE_PER_SM``, ``DEEP_BLOCK``, ``DEEP_PER_SM``), each held to the plain
 version on both batches and timed L2-cold and back to back at both
@@ -62,6 +69,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYERS = os.path.join(HERE, "build", "probes", "lookup_layers.npz")
 BIG = 1 << 20
 DEVICE = "cuda"
+KINDS = ("step", "band", "segmented")
+STEP_P = (1000, 4096)               # the random step layers beside the top
 
 
 def committed_chip_smoke():
@@ -84,13 +93,20 @@ def make_layers() -> None:
     design = cs.build_design(keys)
     bottom, band = (il.device_arrays_from_design(design, device="cpu")[i]
                     for i in (0, 1))
+    top = il.device_arrays_from_design(design, device="cpu")[2]
     rng = np.random.default_rng(17)
     b723 = cs.lookup_layer(rng, 723, band=True)
     q = keys[rng.integers(0, len(keys), BIG)].astype(np.int32)
+    srng = np.random.default_rng(19)
+    steps = {P: cs.lookup_layer(srng, P, band=False) for P in STEP_P}
     os.makedirs(os.path.dirname(LAYERS), exist_ok=True)
     np.savez(LAYERS + ".tmp.npz",
              seg_keys=bottom["piece_keys"].numpy(),
              seg_pos=bottom["piece_pos"].numpy(),
+             top_keys=top["piece_keys"].numpy(),
+             top_pos=top["piece_pos"].numpy(),
+             **{f"s{P}_keys": k for P, (k, _) in steps.items()},
+             **{f"s{P}_pos": p for P, (_, p) in steps.items()},
              **{f"b171_{k}": band[k].numpy()
                 for k in ("node_keys", "x1", "y1", "m", "delta")},
              **{f"b723_{k}": a for k, a in zip(
@@ -99,7 +115,21 @@ def make_layers() -> None:
     os.replace(LAYERS + ".tmp.npz", LAYERS)
 
 
-def worker(root: str) -> dict:
+def step_layers(z, on) -> dict:
+    """The probe's step layers on the card → {P: (keys, pos_lo, pos_hi,
+    the yardstick's gather table)}: the path's top layer, then STEP_P."""
+    import torch
+    out = {}
+    for name in ("top", *(f"s{P}" for P in STEP_P)):
+        k, pos = on(z[f"{name}_keys"]), on(z[f"{name}_pos"])
+        plo, phi = pos[:-1], pos[1:]
+        # entry r of searchsorted-right is piece max(r − 1, 0)
+        pos2 = torch.stack([plo, phi], 1)
+        out[len(k)] = (k, plo, phi, torch.cat([pos2[:1], pos2]).contiguous())
+    return out
+
+
+def worker(root: str, kinds=KINDS) -> dict:
     """One run on the tree at ``root`` → its numbers."""
     sys.path[:0] = [os.path.join(root, "src"), root]
     import numpy as np
@@ -131,28 +161,42 @@ def worker(root: str) -> dict:
     plo, phi = sp[:-1], sp[1:]
     bands = {P: [on(z[f"b{P}_{k}"]) for k in ("node_keys", "x1", "y1", "m",
                                               "delta")] for P in (171, 723)}
+    steps = step_layers(z, on)
     for Q in (4096, BIG):
         qt = on(z["queries"][:Q])
         cases = {}
-        for P, bt in bands.items():
+        for P, (k, lo_, hi_, table) in (steps.items() if "step" in kinds
+                                        else ()):
+            pos = torch.cat([lo_, hi_[-1:]])
+            cases[f"step P={P}"] = (
+                IK.STEP,
+                lambda k=k, lo_=lo_, hi_=hi_, qt=qt: IK.step_lookup_cuda(
+                    qt, k, lo_, hi_),
+                lambda k=k, pos=pos, qt=qt: il.lookup_step_layer(qt, k, pos),
+                ref.step_lookup_torch(qt, k, lo_, hi_),
+                lambda k=k, table=table, qt=qt: table[torch.searchsorted(
+                    k, qt, right=True)])
+        for P, bt in (bands.items() if "band" in kinds else ()):
             cases[f"band P={P}"] = (
                 IK.BAND, lambda bt=bt, qt=qt: IK.band_lookup_cuda(qt, *bt),
                 lambda bt=bt, qt=qt: il.lookup_band_layer(qt, *bt),
-                ref.band_lookup_torch(qt, *bt))
-        g = (torch.searchsorted(sk[::il.LANE].contiguous(), qt, right=True)
-             - 1).clamp_(min=0)
-        bases = (g * il.LANE).to(torch.int32)
-        want = ref.segmented_step_lookup_torch(qt, bases, sk, plo, phi)
-        if seg_takes_bases:
-            def seg(qt=qt, bases=bases):
-                return IK.segmented_step_lookup_cuda(qt, bases, sk, plo, phi)
-        else:
-            def seg(qt=qt):
-                return IK.segmented_step_lookup_cuda(qt, sk, plo, phi)
-        cases[f"segmented P={len(z['seg_keys'])}"] = (
-            IK.SEGMENTED, seg, lambda qt=qt: il.lookup_step_layer(qt, sk, sp),
-            want)
-        for name, (lib, kern, layer, want) in cases.items():
+                ref.band_lookup_torch(qt, *bt), None)
+        if "segmented" in kinds:
+            g = (torch.searchsorted(sk[::il.LANE].contiguous(), qt,
+                                    right=True) - 1).clamp_(min=0)
+            bases = (g * il.LANE).to(torch.int32)
+            want = ref.segmented_step_lookup_torch(qt, bases, sk, plo, phi)
+            if seg_takes_bases:
+                def seg(qt=qt, bases=bases):
+                    return IK.segmented_step_lookup_cuda(qt, bases, sk, plo,
+                                                         phi)
+            else:
+                def seg(qt=qt):
+                    return IK.segmented_step_lookup_cuda(qt, sk, plo, phi)
+            cases[f"segmented P={len(z['seg_keys'])}"] = (
+                IK.SEGMENTED, seg,
+                lambda qt=qt: il.lookup_step_layer(qt, sk, sp), want, None)
+        for name, (lib, kern, layer, want, library) in cases.items():
             for fn in (kern, layer):
                 got = fn()
                 torch.cuda.synchronize()
@@ -171,10 +215,25 @@ def worker(root: str) -> dict:
                 "wrapper_us": cs.time_launches(kern, 200, 15) * 1e3,
                 "layer_call_us": cs.time_launches(layer, 200, 15) * 1e3,
                 "launches_per_layer_call": launched}
+            if library is not None:
+                cases[name]["library_cold_us"] = cs.cold_device_ms(
+                    library, 50) * 1e3
         out["cases"][f"Q={Q}"] = cases
     return out
 
 
+STEP_VARIANTS = {
+    "committed": {},
+    "one query a thread at every batch": {"WIDE_UP_TO": 64},
+    "serving form in blocks of 128": {"WIDE_BLOCK": 128},
+    "serving form in blocks of 512": {"WIDE_BLOCK": 512, "WIDE_PER_SM": 2},
+    "serving form in blocks of 1024": {"WIDE_BLOCK": 1024,
+                                       "WIDE_PER_SM": 1},
+    "persistent 1024 x 1": {"DEEP_BLOCK": 1024, "DEEP_PER_SM": 1},
+    "persistent 256 x 4": {"DEEP_BLOCK": 256, "DEEP_PER_SM": 4},
+    "2 queries a thread a pass": {"DEEP_ITEMS": 2},
+    "8 queries a thread a pass": {"DEEP_ITEMS": 8},
+}
 BAND_VARIANTS = {
     "committed": {},
     "128 threads, 8 blocks an SM": {"BLOCK_Q": 128, "BLOCKS_PER_SM": 8},
@@ -191,9 +250,9 @@ SEGMENTED_VARIANTS = {
 }
 
 
-def sweep() -> dict:
-    """The launch-geometry variants of this tree's band and segmented
-    kernels → {batch: {layer: {variant: (cold us, warm us)}}}."""
+def sweep(kinds=KINDS) -> dict:
+    """The launch-geometry variants of this tree's step, band and
+    segmented kernels → {batch: {layer: {variant: (cold us, warm us)}}}."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -220,10 +279,12 @@ def sweep() -> dict:
                           extra_flags=lib.flags[len(NVCC_FLAGS):])
         out.source = path
         return out
-    libs = {("band", k): variant(IK.BAND, k, d)
-            for k, d in BAND_VARIANTS.items()}
-    libs.update({("segmented", k): variant(IK.SEGMENTED, k, d)
-                 for k, d in SEGMENTED_VARIANTS.items()})
+    committed = {"step": IK.STEP, "band": IK.BAND,
+                 "segmented": IK.SEGMENTED}
+    variants = {"step": STEP_VARIANTS, "band": BAND_VARIANTS,
+                "segmented": SEGMENTED_VARIANTS}
+    libs = {(kind, k): variant(committed[kind], k, d)
+            for kind in kinds for k, d in variants[kind].items()}
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(), libs.values()))
     z = np.load(LAYERS)
@@ -234,25 +295,35 @@ def sweep() -> dict:
     sk, sp = on(z["seg_keys"]), on(z["seg_pos"])
     bands = {P: [on(z[f"b{P}_{k}"]) for k in ("node_keys", "x1", "y1", "m",
                                               "delta")] for P in (171, 723)}
-    band_lib, seg_lib = IK.BAND, IK.SEGMENTED
+    steps = step_layers(z, on)
     out = {"card": cs.card_info()}
     try:
         for Q in (4096, BIG):
             qt = on(z["queries"][:Q])
-            cases = {f"band P={P}": (
-                "band", lambda bt=bt: IK.band_lookup_cuda(qt, *bt),
-                il.band_lookup_torch(qt, *bt)) for P, bt in bands.items()}
+            cases = {}
+            for P, (k, lo_, hi_, _) in steps.items():
+                cases[f"step P={P}"] = (
+                    "step", lambda k=k, lo_=lo_, hi_=hi_:
+                    IK.step_lookup_cuda(qt, k, lo_, hi_),
+                    il.step_lookup_torch(qt, k, lo_, hi_))
+            for P, bt in bands.items():
+                cases[f"band P={P}"] = (
+                    "band", lambda bt=bt: IK.band_lookup_cuda(qt, *bt),
+                    il.band_lookup_torch(qt, *bt))
             cases[f"segmented P={len(z['seg_keys'])}"] = (
                 "segmented",
                 lambda: IK.segmented_step_lookup_cuda(qt, sk, sp[:-1],
                                                       sp[1:]),
                 il.two_level_torch(qt, sk, sp[:-1], sp[1:]))
             for name, (kind, fn, want) in cases.items():
+                if kind not in kinds:
+                    continue
                 for (k, label), lib in libs.items():
                     if k != kind:
                         continue
-                    IK.BAND = lib if kind == "band" else band_lib
-                    IK.SEGMENTED = lib if kind == "segmented" else seg_lib
+                    IK.STEP, IK.BAND, IK.SEGMENTED = (
+                        lib if kind == x else committed[x]
+                        for x in ("step", "band", "segmented"))
                     got = fn()
                     torch.cuda.synchronize()
                     if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -266,39 +337,53 @@ def sweep() -> dict:
                     print(f"Q={Q} {name} {label}: {r[0]:.3f} us cold, "
                           f"{r[1]:.3f} us back to back", flush=True)
     finally:
-        IK.BAND, IK.SEGMENTED = band_lib, seg_lib
+        IK.STEP, IK.BAND, IK.SEGMENTED = (
+            committed[x] for x in ("step", "band", "segmented"))
     return out
+
+
+def has_layers() -> bool:
+    """LAYERS exists and holds every array this probe reads."""
+    import numpy as np
+    if not os.path.exists(LAYERS):
+        return False
+    with np.load(LAYERS) as z:
+        return all(f"s{P}_keys" in z.files for P in STEP_P) \
+            and "top_keys" in z.files
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default="build/parent")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kernels", default=",".join(KINDS),
+                    help="the kernels to take, of " + ", ".join(KINDS))
     ap.add_argument("--json", help="write every run's numbers here")
     ap.add_argument("--sweep", action="store_true",
                     help="time this tree's launch-geometry variants")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kinds = tuple(args.kernels.split(","))
+    if not set(kinds) <= set(KINDS):
+        ap.error(f"--kernels takes {', '.join(KINDS)}")
+    if args.worker:
+        print("RESULT " + json.dumps(worker(args.worker, kinds)), flush=True)
+        return 0
+    if not has_layers():
+        make_layers()
     if args.sweep:
-        if not os.path.exists(LAYERS):
-            make_layers()
-        out = sweep()
+        out = sweep(kinds)
         if args.json:
             with open(args.json, "w") as f:
                 json.dump(out, f, indent=1)
         return 0
-    if args.worker:
-        print("RESULT " + json.dumps(worker(args.worker)), flush=True)
-        return 0
-    if not os.path.exists(LAYERS):
-        make_layers()
     order = []
     for i in range(args.rounds):
         order += [args.parent, "."] if i % 2 == 0 else [".", args.parent]
     runs = []
     for root in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--worker", root],
+                               "--worker", root, "--kernels", args.kernels],
                               cwd=HERE, capture_output=True, text=True,
                               timeout=900)
         lines = [x for x in proc.stdout.splitlines()

@@ -10,7 +10,9 @@
 GStep and EBand are fully vectorized: the greedy grouping recurrence is
 solved exactly with a jump table and frontier-doubling orbit extraction.
 GBand keeps the paper's greedy semantics with a galloping feasibility
-search per emitted node.  All builders assume non-overlapping, sorted
+search per emitted node (a run of records wider than the band is taken
+in one step, and short windows are tested element by element in Python,
+with the same boundaries).  All builders assume non-overlapping, sorted
 position ranges — true for data layers and all outlines.  Host-side numpy,
 bit-identical to the JAX package's ``repro.core.builders``.
 """
@@ -26,6 +28,7 @@ from .registry import (BUILDER_FAMILIES, register_builder,
                        register_multi_lam_builder)
 
 _DELTA_SAFETY = 1.0  # absorbs float64 rounding so Eq.(1) holds bit-exactly
+_SHORT_WINDOW = 32   # GBand windows up to this many records test in Python
 
 
 def greedy_partition(lo: np.ndarray, hi: np.ndarray, lam: float,
@@ -151,9 +154,28 @@ def _gband_starts(D: KeyPositions, lam: float) -> np.ndarray:
     mid = D.mid_f
     half = 0.5 * float(lam)
 
+    # the same arrays read one Python float at a time where a window is
+    # short (numpy's per-call cost would dominate); the same IEEE
+    # operations in the same order, so the same answers
+    ka, la, ha, ma = (memoryview(np.ascontiguousarray(a, dtype=np.float64))
+                      for a in (keys_f, lo_f, hi_f, mid))
+
     def feasible(s: int, e: int) -> bool:
         """Band through midpoints of s and e−1 has width 2δ ≤ λ?"""
         if e - s <= 1:
+            return True
+        if e - s <= _SHORT_WINDOW:
+            k0, m0 = ka[s], ma[s]
+            dx = ka[e - 1] - k0
+            m = (ma[e - 1] - m0) / dx if dx > 0 else 0.0
+            for j in range(s, e):
+                line = m0 + m * (ka[j] - k0)
+                r = line - la[j]
+                b = ha[j] - line
+                # the window's largest residual only grows: one too wide
+                # decides it
+                if (r if r > b else b) + _DELTA_SAFETY > half:
+                    return False
             return True
         dx = keys_f[e - 1] - keys_f[s]
         m = (mid[e - 1] - mid[s]) / dx if dx > 0 else 0.0
@@ -161,10 +183,31 @@ def _gband_starts(D: KeyPositions, lam: float) -> np.ndarray:
         resid = np.maximum(line - lo_f[s:e], hi_f[s:e] - line)
         return float(resid.max()) + _DELTA_SAFETY <= half
 
+    # A band over two or more records passes every record at a distance of
+    # at least half its width, so a record wider than the band (by a margin
+    # far above float64 rounding) ends the group before it and is a group of
+    # its own.  Where s or s + 1 is such a record, the group at s is [s,
+    # s + 1), as the gallop below finds; a run of them is taken at once.
+    # (At λ under the record size every record is one: one gallop each
+    # would take the build.)
+    margin = 1e-6 * (half + 1.0)
+    wide = 0.5 * (hi_f - lo_f) > half - _DELTA_SAFETY + margin
+    alone = wide.copy()
+    alone[:-1] |= wide[1:]
+    alone[-1] = True
+    grouped = np.flatnonzero(~alone)
+
     starts = [0]
     s = 0
     guess = 64
     while True:
+        if alone[s]:
+            t = grouped[np.searchsorted(grouped, s)] \
+                if grouped.size and grouped[-1] > s else n
+            starts.extend(range(s + 1, min(t, n - 1) + 1))
+            if t >= n:
+                break
+            s, guess = t, 1
         # gallop to bracket the maximal feasible end
         step = max(guess, 2)
         e_ok = s + 1

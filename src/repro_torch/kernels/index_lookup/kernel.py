@@ -27,7 +27,7 @@ MAX_P = 4096
 LANE = 128        # the segment width of the two-level path
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-STEP = CudaLibrary("step_lookup", [_P, _I, _P, _P, _P, _I, _P, _P, _P],
+STEP = CudaLibrary("step_lookup", [_P, _I, _P, _P, _P, _I, _P, _P],
                    extra_flags=(f"-DMAX_P={MAX_P}",))
 BAND = CudaLibrary("band_lookup", [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P],
                    extra_flags=(f"-DMAX_P={MAX_P}",))
@@ -79,9 +79,8 @@ def step_lookup_cuda(queries, keys, pos_lo, pos_hi):
                ("keys", keys, torch.int32), ("pos_lo", pos_lo, torch.int32),
                ("pos_hi", pos_hi, torch.int32))
     if Q:
-        lo = out.data_ptr()
         STEP.launch(dev, queries.data_ptr(), Q, keys.data_ptr(),
-                    pos_lo.data_ptr(), pos_hi.data_ptr(), P, lo, lo + 4 * Q)
+                    pos_lo.data_ptr(), pos_hi.data_ptr(), P, out.data_ptr())
     return out.unbind(0)
 
 

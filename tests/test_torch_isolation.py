@@ -76,7 +76,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "repro_torch.models.transformer", "repro_torch.models.api",
                  "repro_torch.models.convert", "repro_torch.configs.qwen3_14b",
                  "repro_torch.serve.serve_step", "repro_torch.serve.kvcache",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.fleet",
+                 "repro_torch.fleet.fleet", "repro_torch.fleet.service"):
         assert name in names
     # each module is imported first, into a process that holds no other
     # module of the port, so an import cycle cannot hide behind the order

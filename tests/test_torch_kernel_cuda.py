@@ -156,13 +156,21 @@ def _on(card, *arrays):
             for a in arrays]
 
 
-@pytest.mark.parametrize("P", [1, 64, 127, 128, 1000, 4096, 4097, 20_000])
-@pytest.mark.parametrize("Q", [1, 255, 257, 4097])
+@pytest.mark.parametrize("P", [1, 2, 31, 32, 33, 64, 127, 128, 1000, 4095,
+                               4096, 4097, 20_000])
+@pytest.mark.parametrize("Q", [1, 255, 257, 4096, 4097, 1 << 20])
 def test_step_lookup_kernels_equal_plain_version(card, P, Q):
+    """Both forms of the step kernel's launch (one query a thread; the
+    persistent grid at 2^20) and the two-level path past MAX_P, bit for
+    bit, with queries below the first key, equal to the last, above it
+    and at 2^31 − 1 (which counts the kernel's KEY_PAD padding), then
+    stored keys."""
     rng = np.random.default_rng(P * 31 + Q)
     keys, pos = _layer(rng, P, False)
     q = rng.integers(1, 2**31 - 2, Q).astype(np.int32)
-    q[: min(Q, 3)] = keys[: min(Q, 3)]
+    edges = np.concatenate([[0, keys[-1], keys[-1] + 1, 2**31 - 1],
+                            keys[:3]]).astype(np.int32)
+    q[: min(Q, len(edges))] = edges[: min(Q, len(edges))]
     qt, kt, pt = _on(card, q, keys, pos)
     lib = IK.STEP if P <= il.MAX_VMEM_ENTRIES else IK.SEGMENTED
     before = lib.launches()
@@ -171,6 +179,11 @@ def test_step_lookup_kernels_equal_plain_version(card, P, Q):
     assert lib.launches() == before + 1
     plo, phi = il.lookup_step_layer(*(x.cpu() for x in (qt, kt, pt)))
     assert torch.equal(lo.cpu(), plo) and torch.equal(hi.cpu(), phi)
+    if P <= il.MAX_VMEM_ENTRIES:
+        # pos_lo and pos_hi as two arrays, not two views of one
+        lo2, hi2 = IK.step_lookup_cuda(qt, kt, pt[:-1].clone(),
+                                       pt[1:].clone())
+        assert torch.equal(lo2, lo) and torch.equal(hi2, hi)
     i = np.maximum(np.searchsorted(keys, q, side="right") - 1, 0)
     np.testing.assert_array_equal(lo.cpu().numpy(), pos[:-1][i])
     np.testing.assert_array_equal(hi.cpu().numpy(), pos[1:][i])
@@ -586,3 +599,45 @@ def test_segmented_grid_across_the_shared_memory_cap(card, over):
     plo, phi = il.segmented_step_lookup_torch(
         qt, il.segment_bases(kt, qt), kt, pt[:-1], pt[1:])
     assert torch.equal(lo, plo) and torch.equal(hi, phi)
+
+
+# ---------------------------------------------------------------------------
+# the sharded fleet served on the card
+# ---------------------------------------------------------------------------
+def test_fleet_on_the_card_equals_the_numpy_backend(card, tmp_path):
+    """Four int32-domain shards of 3-layer demo designs (the root resident
+    and packed for the card, the rest walked on disk), served on the card:
+    one ``fused_descent`` launch a non-empty shard sub-batch, ranges equal
+    to the numpy backend's bit for bit."""
+    from repro_torch.api import ServeSpec
+    from repro_torch.core import KeyPositions, write_index
+    from repro_torch.fleet import FleetService, ShardMap
+    from repro_torch.fleet.fleet import _partition
+    from repro_torch.serve import demo_serving_design
+    rng = np.random.default_rng(5)
+    keys = np.unique(rng.integers(1, 2**31 - 2, 60_000)).astype(np.uint64)
+    D = KeyPositions.fixed_record(keys, 16)
+    shard_map = ShardMap.even_keys(D.keys, 4)
+    parts, bases = _partition(D, shard_map)
+    paths = []
+    for i, part in enumerate(parts):
+        paths.append(str(tmp_path / f"shard_{i}.air"))
+        write_index(paths[-1], demo_serving_design(part), page_bytes=1024)
+    batches = np.split(rng.choice(keys, 2048), 4)
+    subs = sum(len(shard_map.sub_batches(b)) for b in batches)
+
+    def serve(backend):
+        return FleetService(shard_map, paths, bases, specs=[
+            ServeSpec(backend=backend, cache_bytes=(16 << 10,))] * 4)
+    before = K.launches()
+    with serve("cuda") as svc:
+        got = svc.lookup_batches(batches)
+        assert all(s.device.type == "cuda" and s.device_active
+                   for s in svc.services)
+        assert all(s.stats.device_batches == s.stats.batches
+                   for s in svc.services)
+    assert K.launches() - before == subs
+    with serve("numpy") as svc:
+        want = svc.lookup_batches(batches)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -17,12 +17,14 @@ import pytest
 
 import repro.api as RA
 import repro.core as RC
+import repro.fleet as RF
 import repro.serve as RS
 from repro.core import KeyPositions as RefKP
 from repro.serve.index_service import demo_serving_design as ref_demo
 
 import repro_torch.api as PA
 import repro_torch.core as PC
+import repro_torch.fleet as PF
 import repro_torch.serve as PS
 from repro_torch.core import KeyPositions
 from repro_torch.serve import IndexService
@@ -102,11 +104,11 @@ def test_hbm_means_the_reference_tier_in_both_packages(tmp_path):
 
 
 #: names the reference exports that the port leaves out by decision (the
-#: legacy shims of ROADMAP.md queue 1) or that a later slice adds (the
-#: fleet's four)
+#: legacy shims of ROADMAP.md queue 1)
 NOT_PORTED = {"core": {"load_index"},
               "serve": set(),
-              "api": {"Fleet", "FleetService", "FleetSpec", "ShardMap"}}
+              "api": set(),
+              "fleet": set()}
 #: names only the port exports
 PORT_ONLY = {"core": {"DEFAULT_CACHE_ENTRIES", "LayerCache", "LayerMeta",
                       "SCORE_BACKENDS", "check_disjoint", "convert",
@@ -114,12 +116,14 @@ PORT_ONLY = {"core": {"DEFAULT_CACHE_ENTRIES", "LayerCache", "LayerMeta",
                       "lookup_serialized", "parse_meta", "read_meta_path",
                       "seed_layer_cache"},
              "serve": {"demo_serving_design"},
-             "api": {"SERVE_BACKENDS"}}
+             "api": {"SERVE_BACKENDS"},
+             "fleet": set()}
 
 
 @pytest.mark.parametrize("name,ref,port", [("core", RC, PC),
                                            ("serve", RS, PS),
-                                           ("api", RA, PA)])
+                                           ("api", RA, PA),
+                                           ("fleet", RF, PF)])
 def test_public_names_equal_the_references(name, ref, port):
     assert set(port.__all__) == \
         (set(ref.__all__) - NOT_PORTED[name]) | PORT_ONLY[name]
