@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, tuning, in-memory lookup and LLM
-serving paths on one NVIDIA card.
+"""Drive the PyTorch port's serving, tuning, in-memory lookup, LLM serving
+and training paths on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--draws 230000000]
                           [--tune-draws 21000000]
 
 Phases (none catches its own failure; any failure exits non-zero), run in
-the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 12:
+the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 12:
 
 1. Card: name and power limit from ``nvidia-smi``.
 2. Build: compile all seven kernels from ``src/repro_torch/csrc`` through
@@ -44,11 +44,11 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 12:
    records, a gstep(8, 4096) <- gband(1024) <- gstep(8, 4096) index
    written paged with CRCs, served by ``IndexService`` on the card (two
    resident layers, a 1 MiB + 8 MiB block cache, a two-deep prefetch
-   pipeline) over a uniform and a Zipf(1.1) stream of 256 batches x 4096
-   keys.  Every range must contain its key's record, equal the numpy
+   pipeline) over a uniform and a Zipf(1.1) stream of 128 batches x 4096
+   keys (256 before phase 14 took their time).  Every range must contain its key's record, equal the numpy
    backend's ranges, and a 2,000-key sample must equal
    ``SerializedIndex.lookup``.
-7. The tuning path: ~20 M keys of the same mixture (cut from ~200 M by the
+7. The tuning path: ~14 M keys of the same mixture (cut from ~200 M by the
    run's time limit).  Generation 0 of phase 8 is
    ``Index.tune(D, "azure_ssd", TuneSpec(k=5, page_bytes=4096)).build()``,
    the run's one cold build; its retained ``LayerCache`` serves the
@@ -107,8 +107,26 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 12:
    (top-1 equal where prefill's top-2 margin is larger); a profiled
    decode step and prefill (device busy share).  Exactly 40 flash
    launches per prefill call and 40 decode launches per decode step, and
-   no plain attention runs; then the page table of the loop's requests
-   tuned for ``h100_hbm`` on the card.
+   no plain attention runs; the path's peak memory; then the page table of
+   the loop's requests tuned for ``h100_hbm`` on the card.  The phase runs
+   under ``torch.no_grad()``: serving builds no autograd graph.
+14. The training path, after phase 11 with its model freed: a token
+   store of 2^18 records (64..511 tokens each, token ranks drawn by
+   Zipf's law over qwen3's vocab) written and opened on azure_ssd (its
+   sample index tuned by AirTune), 1,024 random ``get``s equal to their
+   records; ``FlashAttention`` at the training shape (B = 4, S = 512,
+   40/8 heads of 128, bf16, causal) against the plain version in float32:
+   its output (the flash kernel) within the bf16 flash limit 2e-2, and
+   its dq, dk, dv within 2e-2 of max |grad| of autograd through the plain
+   version; then the port's
+   ``launch.train.run`` on qwen3-14b at full width, 14 of its 40 layers,
+   bf16, remat, batch 4 x 512, the default AdamW, 12 steps with a
+   checkpoint every 6, a host killed after step 8 so the supervisor
+   restores the step-6 checkpoint (every restored leaf's sha1 equal to
+   the saved tree's) and replays: exactly 2 flash launches a layer and
+   step call (the forward and the remat recompute), no plain attention,
+   finite losses that fall (the launcher's own assertion); step call 2 is
+   traced for the device busy share and its top kernels.
 13. The sharded fleet on the card, after phase 9: the tuning phase's keys
    with 1 KiB records (the record size of the JAX package's fleet
    scenario, benchmarks/serve_bench.py:383) as 4 key-range shards, each
@@ -140,7 +158,9 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 12:
    attention kernel at the path's shapes (and decode at B = 8, S = 32768)
    beside its plain version, the
    ``scaled_dot_product_attention`` yardstick and its bound, with its
-   achieved TFLOP/s and GB/s.  The fused descent, candidate scoring and
+   achieved TFLOP/s and GB/s; the training step's wall (mean, median),
+   tokens/s, model TFLOP/s, peak memory, device busy share and top
+   kernels, and the checkpoint save and restore walls and bytes.  The fused descent, candidate scoring and
    the attention kernels are timed with CUDA events around calls queued
    behind a device sleep, the lookup kernels from CUPTI traces (a trace
    now and then loses device records).
@@ -196,11 +216,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 RECORD_BYTES = 16
 N_BATCHES = 256                  # phase 9's stream
-SERVE_BATCHES = 256              # phase 6's streams
+SERVE_BATCHES = 128              # phase 6's streams (256 before phase 14)
 BATCH = 4096
 ZIPF_A = 1.1
 DRAWS = 230_000_000              # ~200 M unique keys: the SOSD scale
-TUNE_DRAWS = 21_000_000          # ~20 M unique keys: the tuning phase
+TUNE_DRAWS = 14_000_000          # ~14 M unique keys: the tuning phase
+                                 # (~20 M before phase 14 took its time)
 TUNE_TIERS = ("azure_ssd", "azure_nfs", "azure_hdd")
 P99 = {"p": 0.99, "weight": 1.0}
 TUNE_BATCHES = 64
@@ -278,6 +299,20 @@ HBM_LARGE = 2 << 30              # bytes of the bandwidth copy
 HBM_FACTOR = 2.0                 # measured vs the "h100_hbm" profile, at most
 SLEEP_CYCLES = 100_000_000       # device sleep the timed calls queue behind
 QUEUED_CALLS = 20                # calls queued at once where a trace fails
+# phase 14: qwen3-14b at full width, its depth cut to what one card holds
+# with bf16 weights and gradients and float32 moments, trained through the
+# port's launcher with a restore
+TRAIN_LAYERS = 14                # the deepest that fits an 80 GB H100
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS = 12
+TRAIN_CKPT_EVERY = 6
+TRAIN_KILL_AFTER = 8             # a host dies after this step
+TRAIN_TRACED = 2                 # the step call traced for the busy share
+STORE_SAMPLES = 1 << 18          # token records of the phase's store
+STORE_LENGTHS = (64, 512)        # a record's tokens: 64..511
+TOKEN_ZIPF = 1.0                 # token ranks drawn by Zipf's law
+STORE_GETS = 1024
+GRAD_TOL = 2e-2                  # attention gradients vs plain autograd
 
 
 def log(msg: str) -> None:
@@ -786,6 +821,8 @@ def serve_phase(args, device, card, max_err: float) -> dict:
 
     if args.draws < DRAWS:
         log(f"reduced: {args.draws} mixture draws instead of {DRAWS}")
+    log(f"reduced: streams of {SERVE_BATCHES} batches instead of 256 (the "
+        f"run's time limit, since the training phase)")
     t0 = time.perf_counter()
     keys = make_keys(args.draws, args.seed)
     t_gen = time.perf_counter() - t0
@@ -2127,14 +2164,16 @@ def measure_hbm(device) -> tuple:
     return ell, bw
 
 
-def device_share(fn, n: int) -> tuple:
+def device_share(fn, n: int, attempts: int = 3) -> tuple:
     """Wall per call of ``n`` synchronised calls of ``fn`` under the
     profiler, the share of it the card was busy (device rows summed) and
-    the device rows by time → (wall s, busy share, [(name, us per call)])."""
+    the device rows by time → (wall s, busy share, [(name, us per call)]).
+    A trace may come back with no device row: up to ``attempts`` traces
+    are taken (each calls ``fn`` ``n`` times)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):        # a trace may come back with no device row
+    for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2306,6 +2345,7 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
         f"constants {hbm.latency * 1e6:.3f} us, {hbm.bandwidth:.6e} B/s")
 
     cfg = get_config(LLM_ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     params = api.init_params(cfg, args.seed, device)
     torch.cuda.synchronize()
@@ -2454,6 +2494,9 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
                              f"{HBM_FACTOR}x off the card's ({ell:.3e} s, "
                              f"{bw:.3e} B/s)")
 
+    log(f"LLM path peak memory: {torch.cuda.max_memory_allocated(device)} B "
+        f"(the weights {n_params * 2} B)")
+
     # -- each kernel at the path's shapes --------------------------------------
     del params, want, got
     torch.cuda.empty_cache()
@@ -2475,6 +2518,268 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
     return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the training path at qwen3-14b's full width
+# ---------------------------------------------------------------------------
+def write_store(path: str, vocab: int, seed: int) -> float:
+    """STORE_SAMPLES records of STORE_LENGTHS tokens, token ranks drawn by
+    Zipf's law (exponent TOKEN_ZIPF) over ``vocab`` and mapped to token
+    ids by a random permutation, written with ``write_token_store`` →
+    the write's wall (the records are made in bulk first)."""
+    from repro_torch.data import write_token_store
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(*STORE_LENGTHS, STORE_SAMPLES)
+    cdf = np.cumsum(np.arange(1, vocab + 1, dtype=np.float64)
+                    ** -TOKEN_ZIPF)
+    ranks = np.searchsorted(cdf, rng.random(int(lens.sum())) * cdf[-1])
+    tokens = rng.permutation(vocab).astype(np.int32)[
+        np.minimum(ranks, vocab - 1)]
+    samples = np.split(tokens, np.cumsum(lens)[:-1])
+    t0 = time.perf_counter()
+    write_token_store(path, samples)
+    return time.perf_counter() - t0
+
+
+def check_store(path: str, seed: int):
+    """Open the store on azure_ssd (its index tuned by AirTune) and hold
+    STORE_GETS random ``get``s against the records as written → (store,
+    open wall)."""
+    from repro_torch.data import ShardedTokenStore
+    t0 = time.perf_counter()
+    store = ShardedTokenStore(path, profile="azure_ssd")
+    t_open = time.perf_counter() - t0
+    offs = np.load(os.path.join(path, "offsets.npy"))
+    rng = np.random.default_rng(seed + 1)
+    with open(os.path.join(path, "shard0.tokens"), "rb") as f:
+        for i in rng.integers(0, store.n, STORE_GETS):
+            f.seek(int(offs[i]))
+            want = np.frombuffer(f.read(int(offs[i + 1] - offs[i])), np.int32)
+            if not np.array_equal(store.get(int(i)), want):
+                raise AssertionError(f"store.get({i}) != its record")
+    return store, t_open
+
+
+def check_attention_grads(device, cfg, seed: int, card: str) -> float:
+    """``FlashAttention`` at the training shape against the plain version
+    in float32: its output (the kernel's forward) within the bf16 flash
+    limit, then dq, dk, dv (the PyTorch backward, which recomputes the
+    output itself) against autograd through the plain version → the
+    forward's max abs error."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models.layers import FlashAttention
+    B, S, Hq, Hkv, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.hd
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    bf = torch.bfloat16
+    q = randn(B, S, Hq, D).to(bf).transpose(1, 2).requires_grad_()
+    k = randn(B, S, Hkv, D).to(bf).transpose(1, 2).requires_grad_()
+    v = randn(B, S, Hkv, D).to(bf).transpose(1, 2).requires_grad_()
+    do = randn(B, Hq, S, D).to(bf)
+    out = FlashAttention.apply(q, k, v, True, None, None, None)
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref_out = attention_ref(*ref_in)
+    fwd_err = float((out.detach().float() - ref_out.detach()).abs().max())
+    fwd_lim = ATTN_TOL["bfloat16"]["flash"]
+    log(f"attention forward at B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, "
+        f"bf16, causal on {card}: FlashAttention (the flash kernel) vs the "
+        f"plain version in float32: max abs err {fwd_err:.4e} (limit "
+        f"{fwd_lim})")
+    if not fwd_err <= fwd_lim:
+        raise AssertionError(f"flash_attention at the training shape: max "
+                             f"abs err {fwd_err:.3e} (limit {fwd_lim})")
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(ref_out, ref_in, do.float())
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = float((g.float() - w).abs().max() / w.abs().max())
+    log(f"attention gradients at B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, "
+        f"bf16, causal on {card}: FlashAttention's PyTorch backward vs "
+        f"autograd through the plain version in float32: max err / max "
+        f"|grad| {json.dumps(errs)} (limit {GRAD_TOL})")
+    if not max(errs.values()) <= GRAD_TOL:
+        raise AssertionError(f"attention gradients off: {errs}")
+    return fwd_err
+
+
+def leaf_digests(tree) -> dict:
+    """sha1 of each leaf's bytes, by the checkpoint's leaf names (the
+    leaves hashed in parallel: hashlib releases the GIL)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.train.checkpoint import _leaf_paths
+
+    def digest(leaf):
+        t = leaf.contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return hashlib.sha1(t.numpy().data).hexdigest()
+
+    leaves = _leaf_paths(tree)
+    with ThreadPoolExecutor(8) as pool:
+        digests = list(pool.map(digest, [leaf for _, leaf in leaves]))
+    return {name: d for (name, _), d in zip(leaves, digests)}
+
+
+def train_phase(args, device, card: str) -> int:
+    """Phase 14: a token store written, tuned and read back; the attention
+    gradient at the training shape; then the port's ``launch.train.run``
+    at qwen3-14b's full width, TRAIN_LAYERS deep, through the supervisor
+    with a host killed after step TRAIN_KILL_AFTER and a restore from the
+    step-TRAIN_CKPT_EVERY checkpoint → the flash launches of the run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as AK
+    from repro_torch.kernels.flash_attention import ops as AO
+    from repro_torch.launch import train as TL
+
+    cfg = get_config(LLM_ARCH).scaled(n_layers=TRAIN_LAYERS)
+    log(f"reduced: training {cfg.name} at {TRAIN_LAYERS} of its 40 layers "
+        f"(full width; the run's time limit and one card's memory)")
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        data = os.path.join(work, "data")
+        t_write = write_store(data, cfg.vocab, args.seed + 14)
+        store, t_open = check_store(data, args.seed + 14)
+        size = sum(os.path.getsize(os.path.join(data, f))
+                   for f in os.listdir(data))
+        log(f"token store: {store.n} records, {int(store.offs[-1])} token "
+            f"bytes, {size} B on disk; write {t_write:.3f} s, open and tune "
+            f"{t_open:.3f} s; {STORE_GETS} random gets equal their records;"
+            f" sample index {store.tune.design.describe()} (cost "
+            f"{store.tune.cost * 1e6:.3f} us)")
+        store.close()
+
+        fwd_err = check_attention_grads(device, cfg, args.seed + 15, card)
+
+        saved, restored, killed, traced = {}, {}, [], []
+        real_save, real_restore = TL.save_checkpoint, TL.restore_checkpoint
+
+        def save(path, tree, *, step, **kw):
+            if step == TRAIN_CKPT_EVERY:
+                saved.update(leaf_digests(tree))
+            return real_save(path, tree, step=step, **kw)
+
+        def restore(path, like, *, step, **kw):
+            tree, stats = real_restore(path, like, step=step, **kw)
+            restored.update(leaf_digests(tree))
+            return tree, stats
+
+        class KillAfter(TL.TrainingSupervisor):
+            def run(self, state, step_fn, n_steps, start_step=0):
+                def step(st, i):
+                    if i == TRAIN_TRACED and not traced:
+                        # one traced call; the step updates ``st`` in place
+                        traced.append(device_share(lambda: step_fn(st, i), 1,
+                                                   attempts=1))
+                    else:
+                        st = step_fn(st, i)
+                    if i == TRAIN_KILL_AFTER and not killed:
+                        killed.append(f"host{TL.HOSTS - 1}")
+                        self.monitor.kill(killed[-1])
+                    return st
+                return super().run(state, step, n_steps, start_step)
+
+        def plain_on_card(*a, **kw):
+            raise AssertionError("the plain flash attention ran on the "
+                                 "training path")
+
+        targs = TL.parse_args([
+            "--arch", LLM_ARCH, "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--workdir",
+            os.path.join(work, "run"), "--data", data])
+        patched = (TL.save_checkpoint, TL.restore_checkpoint,
+                   TL.TrainingSupervisor, AO.ref.attention_ref)
+        TL.save_checkpoint, TL.restore_checkpoint = save, restore
+        TL.TrainingSupervisor = KillAfter
+        AO.ref.attention_ref = plain_on_card
+        torch.cuda.reset_peak_memory_stats(device)
+        AK.reset_launches()             # the training path starts here
+        try:
+            res = TL.run(cfg, targs, device)
+        finally:
+            (TL.save_checkpoint, TL.restore_checkpoint,
+             TL.TrainingSupervisor, AO.ref.attention_ref) = patched
+        launches = AK.launches()        # ... and ends here
+        peak = torch.cuda.max_memory_allocated(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    calls = len(res.losses)             # step calls, the replayed included
+    expect = 2 * cfg.n_layers * calls   # each block's forward and recompute
+    events = [(e["event"], e.get("step", e.get("from_step"))) for e in
+              res.log if e["event"] != "straggler"]
+    want_events = [("checkpoint", TRAIN_CKPT_EVERY),
+                   ("failure", TRAIN_KILL_AFTER + 1),
+                   ("restart", TRAIN_CKPT_EVERY),
+                   ("checkpoint", 2 * TRAIN_CKPT_EVERY)]
+    replayed = TRAIN_KILL_AFTER + 1 - TRAIN_CKPT_EVERY
+    if events != want_events or calls != TRAIN_STEPS + replayed:
+        raise AssertionError(f"supervisor events {res.log}, {calls} step "
+                             f"calls")
+    if not saved or restored != saved:
+        raise AssertionError("a restored leaf differs from the tree saved "
+                             f"at step {TRAIN_CKPT_EVERY}")
+    if launches != expect:
+        raise AssertionError(f"training launched the flash kernel "
+                             f"{launches} times, expected {expect}")
+    if not np.isfinite(res.losses).all():
+        raise AssertionError(f"losses {res.losses}")
+
+    walls = np.asarray(res.step_walls_s)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # model FLOPs a step: 6 N for the matmul parameters (the embedding is a
+    # gather) per token, and attention's live causal pairs x 4D forward,
+    # three times over for the backward
+    n_mm = cfg.param_count() - cfg.vocab * cfg.d_model - cfg.d_model
+    pairs = TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    flops = 6 * n_mm * tokens + 3 * 4 * cfg.hd * pairs * cfg.n_layers
+    med = float(np.median(walls))
+    ck = res.checkpoints
+    log(f"training {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}), {cfg.n_layers} of 40 layers, "
+        f"{cfg.param_count()} parameters, bf16, remat, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} on {card}: {res.steps} steps "
+        f"({calls} step calls, {replayed} replayed after the restore)")
+    log(f"training losses {json.dumps(res.losses)}; grad norms "
+        f"{json.dumps(res.grad_norms)}")
+    log(f"training step wall mean {walls.mean():.4f} s, median {med:.4f} s "
+        f"(first {walls[0]:.4f} s); {tokens / med:.1f} tokens/s at the "
+        f"median, the launcher's {res.tokens_per_s:.1f} tokens/s over "
+        f"{res.wall_s:.3f} s (checkpoints and the restore included); "
+        f"{flops / med / 1e12:.3f} TFLOP/s of model FLOPs ({flops:.4e} a "
+        f"step: 6 N tokens, N = {n_mm} matmul parameters, + attention's); "
+        f"peak memory {peak} B ({peak / 2**30:.2f} GiB)")
+    log_share(f"training step {TRAIN_TRACED} ({cfg.n_layers} layers, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ})", traced[0])
+    wall, busy, rows = traced[0]
+    if busy is not None:
+        flash_us = sum(us for name, us in rows if "flash" in name)
+        log(f"training step {TRAIN_TRACED}: the flash kernel {flash_us:.1f} "
+            f"us of device time ({flash_us / 1e6 / wall:.4f} of the step's "
+            f"wall)")
+    log(f"checkpoints: saves {json.dumps(ck['save_s'])} s of "
+        f"{json.dumps(ck['save_bytes'])} B; restore "
+        f"{json.dumps(ck['restore_s'])} s reading "
+        f"{json.dumps(ck['restore_bytes'])} B; {len(restored)} restored "
+        f"leaves bit-equal to the step-{TRAIN_CKPT_EVERY} save (sha1)")
+    log(f"training path: flash launches {launches} (exact: 2 x "
+        f"{cfg.n_layers} layers x {calls} step calls, forward and remat "
+        f"recompute); no plain attention ran; losses finite, "
+        f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}")
+    return launches, fwd_err
 
 
 def main(argv=None) -> int:
@@ -2519,7 +2824,15 @@ def main(argv=None) -> int:
     del tuned, gen1                     # the card's memory, freed first
     gc.collect()
     torch.cuda.empty_cache()
-    attention = phase(11, llm_phase, args, device, card, attn_err)
+    # serving builds no autograd graph
+    attention = phase(11, torch.no_grad()(llm_phase), args, device, card,
+                      attn_err)
+    gc.collect()                        # phase 11's model, freed first
+    torch.cuda.empty_cache()
+    flash = next(e for e in attention if e["name"] == "flash_attention")
+    launches, fwd_err = phase(14, train_phase, args, device, card)
+    flash["launches"] += launches
+    flash["max_abs_err"] = max(flash["max_abs_err"], fwd_err)
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s (limit "
         f"1200 s, the kernels' build included)")
     print(json.dumps({"kernels": [fused, scores, *lookups, *attention]}))

@@ -1,5 +1,6 @@
 """Uniform model API of the port: dispatch by ``cfg.family``.
 
+    param_specs(cfg)                        → TensorSpecs of the JAX tree
     init_params(cfg, generator, device)     → a Transformer (random)
     forward_hidden(cfg, params, batch)      → (hidden, aux_loss)
     forward_train(cfg, params, batch)       → (logits, aux_loss)
@@ -7,11 +8,13 @@
     forward_decode(cfg, params, batch, cache, pos) → (logits, cache)
     decode_state_specs(cfg, batch, max_len) → TensorSpecs of the cache
     init_decode_state(cfg, params, batch, max_len) → zeroed cache
+    input_specs(cfg, shape)                 → TensorSpecs of a batch
 
 The dense family runs; the other families (moe, vlm, ssm, hybrid, audio)
 raise ``NotImplementedError`` until they are ported (ROADMAP.md,
 queue 1).  ``SHAPES`` names the four assigned input shapes, as in the
-JAX package.
+JAX package.  The forward passes record gradients where the parameters
+require them; serving callers run them under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from . import transformer
 from .config import ModelConfig
+from .transformer import TensorSpec
 
 _PORTED_FAMILIES = ("dense",)
 
@@ -31,6 +35,10 @@ def _mod(cfg: ModelConfig):
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family is not ported yet "
         f"(ROADMAP.md, queue 1)")
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    return _mod(cfg).param_specs(cfg)
 
 
 def init_params(cfg: ModelConfig, generator=0, device=None):
@@ -47,7 +55,6 @@ def forward_hidden(cfg, params, batch):
     return _mod(cfg).forward_hidden(cfg, params, batch)
 
 
-@torch.no_grad()
 def apply_unembed(cfg: ModelConfig, params, hidden: torch.Tensor):
     logits = hidden @ params.unembed
     if cfg.final_softcap:
@@ -98,3 +105,28 @@ def shape_supported(cfg: ModelConfig, shape: InputShape) -> bool:
     if shape.name == "long_500k":
         return cfg.family in LONG_CONTEXT_FAMILIES
     return True
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """:class:`TensorSpec` stand-ins for every model input of a shape
+    cell, as the JAX package's ``input_specs``."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def tok(s):
+        return TensorSpec((B, s), torch.int32)
+
+    if shape.kind == "train":
+        batch = {"tokens": tok(S), "labels": tok(S)}
+    elif shape.kind == "prefill":
+        batch = {"tokens": tok(S)}
+    else:  # decode: one new token; cache of length S is a separate input
+        batch = {"tokens": tok(1)}
+    if cfg.family == "vlm" and shape.kind != "decode":
+        batch["patch_embeds"] = TensorSpec((B, cfg.n_patches, cfg.d_model),
+                                           cfg.torch_dtype)
+        batch["patch_positions"] = TensorSpec((B, cfg.n_patches),
+                                              torch.int32)
+    if cfg.family == "audio" and shape.kind != "decode":
+        batch["frames"] = TensorSpec((B, cfg.n_frames, cfg.d_model),
+                                     cfg.torch_dtype)
+    return batch

@@ -6,10 +6,21 @@ The JAX package computes attention in its models with jnp
 kernels.flash_attention.ref") and keeps its Pallas kernels beside them as
 a drop-in.  Here the drop-in is real: ``blocked_attention`` on a CUDA
 tensor is the hand-written flash-attention kernel, on a CPU tensor its
-plain version.  MoE (``moe_ffn``, ``aux_load_balance_loss``) is not ported
-yet (ROADMAP.md, queue 1).
+plain version.
+
+Training differentiates through it with :class:`FlashAttention`, an
+``autograd.Function``: its forward is that same kernel (or, on the CPU,
+that plain version); its backward, :func:`attention_grads`, recomputes
+attention over kv blocks of 1,024 in PyTorch ops and returns dq, dk and
+dv.  That is the counterpart of the JAX package's gradient, which is XLA
+autodiff through its jnp ``blocked_attention`` with each kv block
+rematerialised (``repro/models/layers.py:90-92``): no Pallas kernel of
+the JAX package has a backward, so none is ported.  MoE (``moe_ffn``,
+``aux_load_balance_loss``) is not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -46,16 +57,121 @@ def rope(x: torch.Tensor, tables) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+NEG_INF = -1e30
+BLOCK_K = 1024        # the JAX package's block_k: keys a backward block
+
+
+def _attention_out(q: torch.Tensor) -> torch.Tensor:
+    """An empty (B, Hq, Sq, D) result laid out as (B, Sq, Hq, D), so that
+    the model's ``transpose(1, 2).reshape(B, Sq, Hq * D)`` copies
+    nothing."""
+    B, Hq, Sq, D = q.shape
+    return torch.empty((B, Sq, Hq, D), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
                       softcap: float | None = None,
-                      scale: float | None = None,
-                      out: torch.Tensor | None = None) -> torch.Tensor:
+                      scale: float | None = None) -> torch.Tensor:
     """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) → (B, Hq, Sq, D) in q's
-    type, queries end-aligned: the flash-attention kernel on the card, its
-    plain version on the CPU."""
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           softcap=softcap, scale=scale, out=out)
+    type (a view of a (B, Sq, Hq, D) buffer), queries end-aligned: the
+    flash-attention kernel on the card, its plain version on the CPU,
+    through :class:`FlashAttention` (which records a graph only where
+    grad is enabled and an input requires it)."""
+    return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward is :func:`flash_attention`
+    (the kernel on the card, launched once a call, and again when a
+    rematerialised block recomputes it); the backward is
+    :func:`attention_grads` in PyTorch ops.  Neither calls the kernel's
+    plain version on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale,
+                              out=_attention_out(q))
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_grads(q, k, v, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, *, causal: bool = True,
+                    window: int | None = None, softcap: float | None = None,
+                    scale: float | None = None, block_k: int = BLOCK_K):
+    """→ (dq, dk, dv) of ``blocked_attention`` for the output gradient
+    ``do`` (B, Hq, Sq, D), each in its input's type, computed in float32
+    over kv blocks of ``block_k``: a first pass recomputes the output and
+    each row's log-sum-exp (the online softmax of the forward), a second
+    the probabilities of each block and from them the gradients.  A query
+    head's group shares its kv head, so dk and dv sum over the group; the
+    causal and window masks and the tanh softcap are those of the
+    forward."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    dev = q.device
+    # query head h reads kv head h // G: rows (g, i) of one kv head
+    qf = (q.float() * scale).reshape(B, Hkv, G * Sq, D)
+    dof = do.float().reshape(B, Hkv, G * Sq, D)
+    q_pos = (Skv - Sq + torch.arange(Sq, device=dev)).repeat(G)
+    blocks = []
+    for j0 in range(0, Skv, block_k):
+        k_pos = torch.arange(j0, min(j0 + block_k, Skv), device=dev)
+        live = torch.ones((G * Sq, len(k_pos)), dtype=torch.bool, device=dev)
+        if causal:
+            live &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            live &= k_pos[None, :] > q_pos[:, None] - window
+        blocks.append((slice(j0, j0 + len(k_pos)), live))
+
+    def scores(sl):
+        s = qf @ k[:, :, sl].float().transpose(-1, -2)
+        if softcap is None:
+            return s, None
+        t = torch.tanh(s / softcap)
+        return softcap * t, t
+
+    m = torch.full((B, Hkv, G * Sq), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, G * Sq), device=dev)
+    acc = torch.zeros_like(qf)
+    for sl, live in blocks:
+        s = scores(sl)[0].masked_fill(~live, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p @ v[:, :, sl].float()
+        m = m_new
+    o = acc / l.clamp_min(1e-30)[..., None]
+    lse = m + torch.log(l)
+    delta = (dof * o).sum(dim=-1, keepdim=True)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((B, Hkv, Skv, D), device=dev)
+    dv = torch.empty((B, Hkv, Skv, D), device=dev)
+    for sl, live in blocks:
+        s, t = scores(sl)
+        p = torch.exp(s - lse[..., None]).masked_fill(~live, 0.0)
+        dv[:, :, sl] = p.transpose(-1, -2) @ dof
+        ds = p * (dof @ v[:, :, sl].float().transpose(-1, -2) - delta)
+        if t is not None:
+            ds = ds * (1.0 - t * t)
+        dq += ds @ k[:, :, sl].float()
+        dk[:, :, sl] = ds.transpose(-1, -2) @ qf
+    dq = (dq * scale).reshape(B, Hq, Sq, D)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -9,8 +9,16 @@ same names (``embed``, ``unembed``, ``final_norm`` and, per block,
 ``nn.ModuleList``, and the forward passes loop over them.  Weights are
 stored ``(in, out)`` and applied as ``x @ w``, attention tensors are
 ``(B, H, S, D)`` and caches ``(L, B, Hkv, Smax, hd)``, as in the JAX
-package.  Prefill attention is the flash-attention kernel, decode
-attention the decode-attention kernel (their plain versions on the CPU).
+package.  Prefill and training attention is the flash-attention kernel,
+decode attention the decode-attention kernel (their plain versions on the
+CPU).
+
+Parameters are created frozen (``requires_grad`` false), so the serving
+paths, which also run under ``torch.no_grad()``, build no autograd graph;
+a trainer calls ``model.requires_grad_()`` on its own model.  With
+``cfg.remat`` and gradients recorded, each block runs under
+``torch.utils.checkpoint`` and is recomputed in the backward, as the JAX
+package's ``jax.checkpoint`` around its scan body.
 
 Decode applies each layer's sliding window and the attention softcap
 inside the decode kernel, as the JAX package's ``decode_attention_jnp``
@@ -24,6 +32,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels._cuda import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
@@ -66,6 +75,18 @@ def top_shapes(cfg: ModelConfig) -> dict:
             "final_norm": (d,)}
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """The JAX package's parameter tree as :class:`TensorSpec` leaves:
+    ``embed``, ``unembed``, ``final_norm`` and ``blocks`` with every block
+    leaf stacked on a leading layer axis."""
+    dt = cfg.torch_dtype
+    spec = {name: TensorSpec(shape, dt)
+            for name, shape in top_shapes(cfg).items()}
+    spec["blocks"] = {name: TensorSpec((cfg.n_layers, *shape), dt)
+                      for name, shape in block_shapes(cfg).items()}
+    return spec
+
+
 def _frozen(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
@@ -81,9 +102,9 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The parameters of a dense decoder-only transformer.  Use
-    :func:`init_params` or ``repro_torch.models.convert.params_from_numpy``
-    to fill them."""
+    """The parameters of a dense decoder-only transformer, frozen until
+    ``requires_grad_()``.  Use :func:`init_params` or
+    ``repro_torch.models.convert.params_from_numpy`` to fill them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -161,11 +182,10 @@ def _attention(cfg: ModelConfig, p: Block, x: torch.Tensor, tables, *,
     if cache is None:
         # the kernel writes (B, Hq, S, hd) through a (B, S, Hq, hd) buffer's
         # strides, so the reshape below needs no copy
-        out = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
-        blocked_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True, window=window,
-                          softcap=cfg.attn_softcap, out=out.transpose(1, 2))
-        out = out.reshape(B, S, Hq * hd)
+        out = blocked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True, window=window,
+                                softcap=cfg.attn_softcap)
+        out = out.transpose(1, 2).reshape(B, S, Hq * hd)
     else:
         ck, cv, kv_len = cache
         # in place: the JAX package's dynamic_update_slice returns a new
@@ -201,15 +221,22 @@ def _embed(model: Transformer, batch: dict) -> torch.Tensor:
     return model.embed[tokens.long()]
 
 
-@torch.no_grad()
 def forward_hidden(cfg: ModelConfig, model: Transformer, batch: dict):
-    """→ (final-normed hidden (B, S, d), aux loss 0.0) — pre-unembed."""
+    """→ (final-normed hidden (B, S, d), aux loss 0.0) — pre-unembed.
+    Differentiable; with ``cfg.remat`` and gradients recorded each block
+    is recomputed in the backward."""
     x = _embed(model, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     tables = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer, blk in enumerate(model.blocks):
-        x = _block(cfg, blk, x, tables, window=window_for(cfg, layer))
+        window = window_for(cfg, layer)
+        if remat:
+            x = checkpoint(_block, cfg, blk, x, tables, window=window,
+                           use_reentrant=False)
+        else:
+            x = _block(cfg, blk, x, tables, window=window)
     return rms_norm(x, model.final_norm), 0.0
 
 
@@ -222,7 +249,6 @@ def unembed(cfg: ModelConfig, model: Transformer,
     return logits
 
 
-@torch.no_grad()
 def forward_train(cfg: ModelConfig, model: Transformer, batch: dict):
     """→ (logits (B, S, V), aux loss)."""
     hidden, aux = forward_hidden(cfg, model, batch)

@@ -1,6 +1,7 @@
 """Serving steps of the port: prefill (full-sequence forward, last-position
 logits) and decode (one token against the KV cache), as in the JAX
-package's ``repro.serve.serve_step``."""
+package's ``repro.serve.serve_step``.  Both run under ``torch.no_grad()``:
+serving builds no autograd graph, whatever the parameters require."""
 from __future__ import annotations
 
 import torch
@@ -15,6 +16,7 @@ def make_prefill_step(cfg):
     be hundreds of GB and no server needs them.
     """
 
+    @torch.no_grad()
     def prefill(params, batch):
         hidden, _ = api.forward_hidden(cfg, params, batch)
         return api.apply_unembed(cfg, params, hidden[:, -1, :])
@@ -26,6 +28,7 @@ def make_decode_step(cfg):
     """decode(params, batch, state, pos) → (next-token logits (B, V),
     state); the state (the KV cache) is updated in place."""
 
+    @torch.no_grad()
     def decode(params, batch, state, pos):
         logits, new_state = api.forward_decode(cfg, params, batch, state, pos)
         logits = logits[:, -1, :]

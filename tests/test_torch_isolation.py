@@ -77,7 +77,14 @@ def test_every_port_module_imports_with_jax_blocked():
                  "repro_torch.models.convert", "repro_torch.configs.qwen3_14b",
                  "repro_torch.serve.serve_step", "repro_torch.serve.kvcache",
                  "repro_torch.launch.serve", "repro_torch.fleet",
-                 "repro_torch.fleet.fleet", "repro_torch.fleet.service"):
+                 "repro_torch.fleet.fleet", "repro_torch.fleet.service",
+                 "repro_torch.data", "repro_torch.data.datasets",
+                 "repro_torch.data.store", "repro_torch.train",
+                 "repro_torch.train.optimizer",
+                 "repro_torch.train.train_step",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.train.fault_tolerance",
+                 "repro_torch.launch.train"):
         assert name in names
     # each module is imported first, into a process that holds no other
     # module of the port, so an import cycle cannot hide behind the order

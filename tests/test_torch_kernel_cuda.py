@@ -641,3 +641,108 @@ def test_fleet_on_the_card_equals_the_numpy_backend(card, tmp_path):
         want = svc.lookup_batches(batches)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# training: attention's gradient and a step on the card
+# ---------------------------------------------------------------------------
+def _attention_grads_vs_plain(card, dtype, B, Hq, Hkv, S, D, **opts):
+    """``FlashAttention`` against the plain version in float32: its output
+    (the kernel's forward) within the flash limit, asserted here, and its
+    dq, dk, dv (the PyTorch backward, which recomputes the output itself)
+    against autograd through the plain version → the worst gradient error
+    over max |grad| (absolute for a gradient that is 0), and the kernel's
+    launches."""
+    from repro_torch.models.layers import FlashAttention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _randn(card, S * 7 + D, (B, S, Hq, D), (B, S, Hkv, D),
+                         (B, S, Hkv, D), (B, Hq, S, D), dtype=dtype)
+    q, k, v = (x.transpose(1, 2).requires_grad_() for x in (q, k, v))
+    before = AK.launches()
+    out = FlashAttention.apply(q, k, v, True, opts.get("window"),
+                               opts.get("softcap"), None)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    launches = AK.launches() - before
+    ref_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref_out = fa.attention_ref(*ref_in, **opts)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert float((out.detach().float() - ref_out.detach()).abs().max()) \
+        <= ATTN_TOL[dtype][3]
+    want = torch.autograd.grad(ref_out, ref_in, do.float())
+    # over max |grad|, or absolute where the gradient is 0 (dq at S = 1)
+    err = max(float((g.float() - w).abs().max()
+                    / (w.abs().max() if w.abs().max() > 0 else 1.0))
+              for g, w in zip(got, want))
+    assert all(g.dtype == dtype and g.shape == x.shape
+               for g, x in zip(got, (q, k, v)))
+    return err, launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradient_at_the_training_shape(card, dtype):
+    err, launches = _attention_grads_vs_plain(card, dtype, 4, 40, 8, 512,
+                                              128)
+    assert launches == 1                  # the backward launches nothing
+    assert err <= ATTN_TOL[dtype][3], err
+
+
+@pytest.mark.parametrize("opts", [{}, dict(window=100, softcap=30.0)],
+                         ids=["causal", "window-softcap"])
+@pytest.mark.parametrize("S", [1, 127, 128, 513])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradient_at_the_kernels_tile_edges(card, dtype, S, opts):
+    err, launches = _attention_grads_vs_plain(card, dtype, 2, 4, 2, S, 64,
+                                              **opts)
+    assert launches == 1
+    assert err <= ATTN_TOL[dtype][3], err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_training_step_on_the_card_equals_the_cpus(card, dtype,
+                                                     monkeypatch):
+    """One SMOKE qwen3 step from the same parameters and batch: loss and
+    gradient norm within the flash kernel's limit (float32 2e-5, relative
+    here; bfloat16 2e-2), parameters within rtol 1e-5 / atol 1e-6 in
+    float32 (tests/test_torch_train.py's, for the same reasons); exactly
+    two flash launches a layer (the forward and the remat recompute) and
+    no plain attention on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.convert import load_params_, params_tree
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import TrainConfig, adamw_init, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-14b", smoke=True).scaled(dtype=dtype)
+    cpu = api.init_params(cfg, 4, "cpu")
+    gpu = Transformer(cfg, card)
+    load_params_(cfg, gpu, params_tree(cfg, cpu))
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))
+                                 .astype(np.int32)) for k in ("tokens",
+                                                              "labels")}
+    out = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        model.requires_grad_(True)
+        tcfg = TrainConfig()
+        opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+        before = AK.launches()
+        _, _, m = make_train_step(cfg, tcfg)(
+            model, opt, {k: v.to(model.device) for k, v in batch.items()})
+        loss, gnorm = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+        out[name] = (loss, gnorm, AK.launches() - before,
+                     params_tree(cfg, model))
+        if name == "cpu":
+            monkeypatch.setattr(fa.ops.ref, "attention_ref", None)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert out["cuda"][2] == 2 * cfg.n_layers and out["cpu"][2] == 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=tol)
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=tol)
+    if dtype == "float32":
+        got, want = out["cuda"][3], out["cpu"][3]
+        for key in ("embed", "unembed", "final_norm"):
+            torch.testing.assert_close(got[key], want[key], rtol=1e-5,
+                                       atol=1e-6)
+        for key, w in want["blocks"].items():
+            torch.testing.assert_close(got["blocks"][key], w, rtol=1e-5,
+                                       atol=1e-6)
