@@ -6,7 +6,7 @@ and training paths on one NVIDIA card.
                           [--tune-draws 21000000]
 
 Phases (none catches its own failure; any failure exits non-zero), run in
-the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 12:
+the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 12:
 
 1. Card: name and power limit from ``nvidia-smi``.
 2. Build: compile all seven kernels from ``src/repro_torch/csrc`` through
@@ -44,8 +44,8 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 12:
    records, a gstep(8, 4096) <- gband(1024) <- gstep(8, 4096) index
    written paged with CRCs, served by ``IndexService`` on the card (two
    resident layers, a 1 MiB + 8 MiB block cache, a two-deep prefetch
-   pipeline) over a uniform and a Zipf(1.1) stream of 128 batches x 4096
-   keys (256 before phase 14 took their time).  Every range must contain its key's record, equal the numpy
+   pipeline) over a uniform and a Zipf(1.1) stream of 96 batches x 4096
+   keys (256 before phase 14 took their time, 128 before phase 15).  Every range must contain its key's record, equal the numpy
    backend's ranges, and a 2,000-key sample must equal
    ``SerializedIndex.lookup``.
 7. The tuning path: ~14 M keys of the same mixture (cut from ~200 M by the
@@ -99,14 +99,16 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 12:
    freed: the ``h100_hbm`` profile's ℓ and B measured (4 KiB copies
    queued back to back, 2 GiB copies; CUDA events) and held within 2x of
    the profile; qwen3-14b at
-   full width and depth in bf16, weights from ``init_params`` on the card;
+   full width in bf16 and 8 of its 40 layers (40 before phase 15 took
+   the time), weights from ``init_params`` on the card;
    ``make_prefill_step`` at B = 1 x 4096 and B = 4 x 2048 (twice each);
    the port's ``launch.serve.run`` with 8 requests, batch 4, and the steps
    every request needs; one 4 x 512 prompt through prefill and, token by
    token, decode, whose last logits must agree within 5e-2 of max |logit|
    (top-1 equal where prefill's top-2 margin is larger); a profiled
-   decode step and prefill (device busy share).  Exactly 40 flash
-   launches per prefill call and 40 decode launches per decode step, and
+   decode step and prefill (device busy share).  Exactly one flash
+   launch a layer and prefill call and one decode launch a layer and
+   decode step, and
    no plain attention runs; the path's peak memory; then the page table of
    the loop's requests tuned for ``h100_hbm`` on the card.  The phase runs
    under ``torch.no_grad()``: serving builds no autograd graph.
@@ -127,6 +129,26 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 12:
    step call (the forward and the remat recompute), no plain attention,
    finite losses that fall (the launcher's own assertion); step call 2 is
    traced for the device busy share and its top kernels.
+15. The other families, after phase 14 with its model freed, under
+   ``torch.no_grad()`` in bf16, weights from ``init_params`` on the card:
+   llama4-scout-17b-a16e (16 experts top-1 + a shared expert; 12 of its
+   48 layers), grok-1-314b (8 experts top-2; 4 of 64), llava-next-34b (all
+   60 layers, 576 patch embeddings at random positions), zamba2-1.2b (38
+   mamba layers, the shared block after every 6), rwkv6-7b (32 layers) and
+   whisper-small (12 + 12 layers over 1,500 stub frames), each at its
+   published width: ``make_prefill_step`` twice at 1 x 4096 (whisper at
+   its 448-token context) and once instrumented (MoE capacity drops; each
+   chunked scan's wall and the largest |W| a chunk's cumulative
+   log-decay reaches); one 2 x 128 prompt through prefill and, token by
+   token, decode, whose last logits must agree within 5e-2 of max |logit|
+   (top-1 equal where prefill's top-2 margin is larger): MoE at the
+   capacity factor E / k, where nothing is dropped, its routing flips
+   between the two paths counted and the check decided with decode routed
+   as prefill routed; rwkv6 decided in float32 (the same weights upcast),
+   its bf16 error printed; llava text-only.  zamba2 also runs the port's
+   ``launch.serve`` loop at the JAX launcher's defaults (8 requests, batch
+   4, 32 steps).  Exact flash and decode launches per family, no plain
+   attention; each family's peak memory.
 13. The sharded fleet on the card, after phase 9: the tuning phase's keys
    with 1 KiB records (the record size of the JAX package's fleet
    scenario, benchmarks/serve_bench.py:383) as 4 key-range shards, each
@@ -216,7 +238,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 RECORD_BYTES = 16
 N_BATCHES = 256                  # phase 9's stream
-SERVE_BATCHES = 128              # phase 6's streams (256 before phase 14)
+SERVE_BATCHES = 96               # phase 6's streams (256 before phase 14,
+                                 # 128 before phase 15)
 BATCH = 4096
 ZIPF_A = 1.1
 DRAWS = 230_000_000              # ~200 M unique keys: the SOSD scale
@@ -260,6 +283,18 @@ FLASH_CASES = (
     dict(B=1, Hq=2, Hkv=1, Sq=128, Skv=128, D=128, window=64, softcap=50.0),
     dict(B=1, Hq=40, Hkv=8, Sq=4096, Skv=4096, D=128),
     dict(B=2, Hq=40, Hkv=8, Sq=1000, Skv=3000, D=128),
+    # whisper's non-causal attention (12 heads of 64): the encoder, the
+    # decoder's cross-attention at its context, at Sq = 1 (decode) and past
+    # the encoder's length (Sq > Skv: SMOKE's 32 frames, train_4k's 4,096
+    # tokens over 1,500), and ragged tile edges past Skv
+    dict(B=1, Hq=12, Hkv=12, Sq=1500, Skv=1500, D=64, causal=False),
+    dict(B=1, Hq=12, Hkv=12, Sq=448, Skv=1500, D=64, causal=False),
+    dict(B=2, Hq=12, Hkv=12, Sq=1, Skv=1500, D=64, causal=False),
+    dict(B=2, Hq=12, Hkv=12, Sq=448, Skv=32, D=64, causal=False),
+    dict(B=1, Hq=12, Hkv=12, Sq=4096, Skv=1500, D=64, causal=False),
+    dict(B=2, Hq=4, Hkv=2, Sq=129, Skv=95, D=32, causal=False),
+    dict(B=1, Hq=4, Hkv=4, Sq=300, Skv=1, D=128, causal=False,
+         softcap=30.0),
 )
 # the bf16 kernels' tile edges (as tests/test_torch_kernel_cuda.py): flash
 # Sq x (Skv - Sq) x D at 2 query and 4 kv heads, B = 2; window and softcap
@@ -286,6 +321,7 @@ WINDOW_CACHES = (1, 4095, 4097, 32768)
 ATTN_TOL = {"float32": {"flash": 2e-5, "o": 3e-5, "m": 1e-5, "l": 1e-5},
             "bfloat16": {"flash": 2e-2, "o": 2e-2, "m": 2e-2, "l": 2e-2}}
 LLM_ARCH = "qwen3-14b"
+LLM_LAYERS = 8                   # phase 11's depth of 40 (phase 15's time)
 PREFILLS = ((1, 4096), (4, 2048))          # (batch, prompt length)
 SERVE_REQUESTS = 8
 SERVE_BATCH = 4
@@ -313,6 +349,23 @@ STORE_LENGTHS = (64, 512)        # a record's tokens: 64..511
 TOKEN_ZIPF = 1.0                 # token ranks drawn by Zipf's law
 STORE_GETS = 1024
 GRAD_TOL = 2e-2                  # attention gradients vs plain autograd
+# phase 15: the other families at their published widths, each depth cut
+# only where one card's memory or the run's time limit asks
+FAMILIES = (                     # (arch, layers kept; None: full depth)
+    ("llama4-scout-17b-a16e", 12),
+    ("grok-1-314b", 4),
+    ("llava-next-34b", None),
+    ("zamba2-1.2b", None),
+    ("rwkv6-7b", None),
+    ("whisper-small", None),
+)
+FAMILY_PREFILL = 4096            # tokens of the 1 x S prefill
+WHISPER_CONTEXT = 448            # whisper's decoder context
+FAMILY_ECHO = (2, 128)           # the prompt through prefill and decode
+# families whose decode check is decided in float32 (the bf16 weights
+# upcast): random-weight RWKV6 amplifies bf16 rounding over its 32 layers
+# (PERF.md §6), so bf16 cannot hold its chunked scan to its recurrence
+ECHO_F32_FAMILIES = ("ssm",)
 
 
 def log(msg: str) -> None:
@@ -822,7 +875,8 @@ def serve_phase(args, device, card, max_err: float) -> dict:
     if args.draws < DRAWS:
         log(f"reduced: {args.draws} mixture draws instead of {DRAWS}")
     log(f"reduced: streams of {SERVE_BATCHES} batches instead of 256 (the "
-        f"run's time limit, since the training phase)")
+        f"run's time limit: 128 since the training phase, 96 since the "
+        f"families phase)")
     t0 = time.perf_counter()
     keys = make_keys(args.draws, args.seed)
     t_gen = time.perf_counter() - t0
@@ -2042,14 +2096,14 @@ def check_attention_kernels(device, seed: int, card: str) -> dict:
         n_fl += 1
         del q, k, v, o, want
     for case in FLASH_CASES:
-        c = dict(case)
+        c = {"causal": True, **case}
         B, Hq, Hkv, Sq, Skv, D = (c.pop(x) for x in ("B", "Hq", "Hkv", "Sq",
                                                      "Skv", "D"))
         for dt in (torch.bfloat16, torch.float32):
             q = randn((B, Hq, Sq, D), dt)
             k, v = randn((B, Hkv, Skv, D), dt), randn((B, Hkv, Skv, D), dt)
-            o = flash_attention_cuda(q, k, v, causal=True, **c)
-            want = attention_ref(q, k, v, causal=True, **c)
+            o = flash_attention_cuda(q, k, v, **c)
+            want = attention_ref(q, k, v, **c)
             torch.cuda.synchronize()
             check_flash(o, want, str(dt).split(".")[-1], case)
             n_fl += 1
@@ -2106,7 +2160,7 @@ def check_windowed_decode(device, rng, randn, check_decode,
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the LLM serving path at qwen3-14b's full width and depth
+# phase 11: the LLM serving path at qwen3-14b's full width
 # ---------------------------------------------------------------------------
 def queued_device_ms(fn, n: int, before=None) -> float:
     """Device time per call of ``n`` calls of ``fn`` (each after
@@ -2320,8 +2374,8 @@ def flash_numbers(B: int, S: int, cfg, card: str, device, gen) -> dict:
 
 
 def llm_phase(args, device, card: str, errs: dict) -> list:
-    """Phase 11: qwen3-14b at full width and depth in bf16 on the card:
-    prefill through ``make_prefill_step``, the port's serving loop, the
+    """Phase 11: qwen3-14b at full width, LLM_LAYERS deep, in bf16 on the
+    card: prefill through ``make_prefill_step``, the port's serving loop, the
     same prompt through decode against prefill, the page table on the
     ``h100_hbm`` profile, then each attention kernel's numbers → the two
     kernels-line entries."""
@@ -2344,7 +2398,9 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
         f"copy, queued), bandwidth {bw:.6e} B/s (2 GiB copies); profile "
         f"constants {hbm.latency * 1e6:.3f} us, {hbm.bandwidth:.6e} B/s")
 
-    cfg = get_config(LLM_ARCH)
+    cfg = get_config(LLM_ARCH).scaled(n_layers=LLM_LAYERS)
+    log(f"reduced: serving {cfg.name} at {LLM_LAYERS} of its 40 layers "
+        f"(full width; the run's time limit, for phase 15)")
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     params = api.init_params(cfg, args.seed, device)
@@ -2782,6 +2838,406 @@ def train_phase(args, device, card: str) -> int:
     return launches, fwd_err
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the other families at their published widths
+# ---------------------------------------------------------------------------
+def family_launches(cfg) -> tuple:
+    """Attention launches the family's serving path makes: (flash per
+    prefill call, decode per decode step, flash per decode step, flash per
+    decode-state init)."""
+    from repro_torch.models import ssm
+    if cfg.family in ("dense", "moe", "vlm"):
+        return cfg.n_layers, cfg.n_layers, 0, 0
+    if cfg.family == "hybrid":           # the shared block's applications
+        n = ssm.n_shared_applications(cfg)
+        return n, n, 0, 0
+    if cfg.family == "audio":            # encoder; decoder self + cross
+        return (cfg.encoder_layers + 2 * cfg.n_layers, cfg.n_layers,
+                cfg.n_layers, cfg.encoder_layers)
+    return 0, 0, 0, 0                    # rwkv: no attention
+
+
+def family_batch(cfg, rng, B: int, S: int, device, patches: bool) -> dict:
+    """Random tokens (B, S) and the family's stub inputs: whisper's
+    frames (B, n_frames, d); llava's ``n_patches`` patch embeddings at
+    distinct random positions when ``patches``."""
+    import torch
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab, (B, S)).astype(np.int32)).to(device)}
+    scale = cfg.padded_vocab ** -0.5     # the embedding rows' init scale
+    if cfg.family == "audio":
+        batch["frames"] = (torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)).to(device)
+            .mul_(scale).to(cfg.torch_dtype))
+    if cfg.family == "vlm" and patches:
+        P = min(cfg.n_patches, S)
+        batch["patch_embeds"] = (torch.from_numpy(rng.standard_normal(
+            (B, P, cfg.d_model)).astype(np.float32)).to(device)
+            .mul_(scale).to(cfg.torch_dtype))
+        batch["patch_positions"] = torch.from_numpy(np.stack(
+            [rng.choice(S, P, replace=False) for _ in range(B)])
+            .astype(np.int32)).to(device)
+    return batch
+
+
+class FamilyProbe:
+    """While active, counts the (token, expert) assignments each MoE
+    routing group kept, and times every chunked linear scan (synchronised
+    around it) with the largest |W| a chunk's cumulative log-decay
+    reached: wrappers around ``layers._moe_group_dispatch`` and the scan
+    the rwkv and ssm modules call.  For one instrumented prefill only: it
+    synchronises."""
+
+    def __init__(self):
+        self.kept = self.assigned = 0
+        self.scan_walls, self.max_w = [], 0.0
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.models import layers, linear_scan, rwkv, ssm
+        real_disp, real_scan = (layers._moe_group_dispatch,
+                                linear_scan.chunked_linear_scan)
+
+        def dispatch(*a, **kw):
+            out, keep = real_disp(*a, **kw)
+            self.kept += int(keep.sum())
+            self.assigned += keep.numel()
+            return out, keep
+
+        def scan(q, k, v, logw, state0, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_scan(q, k, v, logw, state0, **kw)
+            torch.cuda.synchronize()
+            self.scan_walls.append(time.perf_counter() - t0)
+            C = kw.get("chunk", linear_scan.CHUNK)
+            w = F.pad(logw.float(), (0, 0, 0, (-logw.shape[2]) % C))
+            w = w.reshape(*w.shape[:2], -1, C, w.shape[-1]).cumsum(dim=3)
+            self.max_w = max(self.max_w, float(w.abs().max()))
+            return out
+
+        self._mods = (layers, rwkv, ssm)
+        self._saved = (real_disp, rwkv.chunked_linear_scan,
+                       ssm.chunked_linear_scan)
+        layers._moe_group_dispatch = dispatch
+        rwkv.chunked_linear_scan = ssm.chunked_linear_scan = scan
+        return self
+
+    def __exit__(self, *exc):
+        layers, rwkv, ssm = self._mods
+        (layers._moe_group_dispatch, rwkv.chunked_linear_scan,
+         ssm.chunked_linear_scan) = self._saved
+        return False
+
+
+class MoeRoutes:
+    """While active, wraps the transformer's ``moe_ffn``: records each
+    call's top-k experts and router top-k margin (in logit units) by
+    layer, and, where ``pin(layer)`` is set, routes every token of the
+    call to the experts it names (gates from the call's own router
+    probabilities at those experts).  The decode check pins decode's
+    routing to prefill's: a (token, expert) choice within bf16 rounding
+    of the next may flip between the two paths, and one flipped token's
+    FFN output then differs entirely (the JAX package's decode test leaves
+    MoE out for this)."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers, self.calls, self.seen, self.pin = n_layers, 0, [], None
+
+    def __enter__(self):
+        from repro_torch.models import layers, transformer
+        real_ffn, real_route = transformer.moe_ffn, layers._route
+
+        def moe_ffn(x, router_w, *w, top_k, capacity_factor):
+            top = (x.float() @ router_w.float()).topk(top_k + 1, dim=-1)
+            layer = self.calls % self.n_layers
+            self.calls += 1
+            self.seen.append((top.indices[:, :top_k], top.values[:, top_k - 1]
+                              - top.values[:, top_k]))
+            if self.pin is None:
+                return real_ffn(x, router_w, *w, top_k=top_k,
+                                capacity_factor=capacity_factor)
+            pinned = self.pin(layer)
+
+            def route(x_, r_, k_):
+                probs, _, _ = real_route(x_, r_, k_)
+                return probs, probs.gather(-1, pinned), pinned
+            layers._route = route
+            try:
+                return real_ffn(x, router_w, *w, top_k=top_k,
+                                capacity_factor=capacity_factor)
+            finally:
+                layers._route = real_route
+
+        self._saved = (transformer, real_ffn)
+        transformer.moe_ffn = moe_ffn
+        return self
+
+    def __exit__(self, *exc):
+        transformer, real_ffn = self._saved
+        transformer.moe_ffn = real_ffn
+        return False
+
+
+def serve_family(arch: str, layers, args, device, card: str) -> dict:
+    """One family on the card in bf16: weights from ``init_params``,
+    ``make_prefill_step`` twice at 1 x FAMILY_PREFILL (whisper: its 448-token
+    context over 1,500 frames; llava: with its patches) and once
+    instrumented, a FAMILY_ECHO prompt through prefill and token by token
+    through decode (MoE at the no-drop capacity factor E / k), zamba2's
+    launcher at the JAX launcher's defaults; exact attention launches →
+    {kernel: launches} of the family's run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as AK
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import api
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch)
+    full = cfg.n_layers
+    if layers is not None:
+        cfg = cfg.scaled(n_layers=layers)
+        log(f"reduced: {cfg.name} at {layers} of its {full} layers (full "
+            f"width; one card's memory)")
+    rng = np.random.default_rng(args.seed + 15)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, args.seed, device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{cfg.name} [{cfg.family}] on {card}: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k}"
+           + (" + shared" if cfg.shared_expert else "")
+           if cfg.n_experts else "")
+        + f"; {n_params} parameters in {cfg.dtype} ({n_params * 2} B) drawn"
+        f" on the card in {t_init:.1f} s")
+    per_prefill, dec_per_step, fl_per_step, fl_per_init = \
+        family_launches(cfg)
+    AK.reset_launches()
+    DK.reset_launches()                 # the family's path starts here
+    prefill = make_prefill_step(cfg)
+    S = WHISPER_CONTEXT if cfg.family == "audio" else FAMILY_PREFILL
+    batch = family_batch(cfg, rng, 1, S, device, patches=True)
+    walls = []
+    for _ in range(2):                  # the first call warms the library
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    lf = logits.float()
+    assert logits.shape == (1, cfg.padded_vocab), logits.shape
+    assert bool(torch.isfinite(lf[:, :cfg.vocab]).all())
+    with FamilyProbe() as probe:        # one instrumented call
+        prefill(params, batch)
+    prefill_calls = 3
+    extra = (f" over {cfg.n_frames} frames" if cfg.family == "audio" else
+             f" with {batch['patch_embeds'].shape[1]} patch embeddings"
+             if "patch_embeds" in batch else "")
+    log(f"{cfg.name} prefill B=1 S={S}{extra} on {card}: wall "
+        f"{walls[1]:.4f} s (first call {walls[0]:.4f} s), "
+        f"{S / walls[1]:.1f} tokens/s")
+    if probe.assigned:
+        log(f"{cfg.name} prefill routing: {probe.assigned - probe.kept} of "
+            f"{probe.assigned} (token, expert) assignments dropped by "
+            f"capacity (share {1 - probe.kept / probe.assigned:.6f}, "
+            f"capacity factor {cfg.capacity_factor})")
+    if probe.scan_walls:
+        sw = np.asarray(probe.scan_walls)
+        log(f"{cfg.name} chunked scans in the instrumented prefill on "
+            f"{card}: {len(sw)} calls, {sw.sum():.4f} s together, mean "
+            f"{sw.mean() * 1e3:.3f} ms ({S // 32} chunk steps a call); "
+            f"largest |W| a chunk reached {probe.max_w:.4f}")
+
+    # the same prompt through prefill and, token by token, decode
+    dcfg = cfg
+    if cfg.n_experts:
+        dcfg = cfg.scaled(capacity_factor=cfg.n_experts / cfg.top_k)
+        log(f"{cfg.name} decode check at capacity factor "
+            f"{dcfg.capacity_factor} (E / k: no routing group drops an "
+            f"assignment, so prefill and decode route alike; the JAX "
+            f"package's decode test leaves MoE out for the drops)")
+    B, n = FAMILY_ECHO
+    echo = family_batch(cfg, rng, B, n, device, patches=False)
+    toks = echo["tokens"]
+    decode = make_decode_step(dcfg)
+    decode_steps, inits = 0, 0
+
+    def run_decode(routes=None, c=dcfg, p=params, step=decode):
+        state = api.init_decode_state(c, p, B, n, frames=echo.get("frames"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n):
+            if routes is not None:
+                routes.step = t
+            got, state = step(p, {"tokens": toks[:, t:t + 1]}, state, t)
+        torch.cuda.synchronize()
+        return got.float()[:, :cfg.vocab], time.perf_counter() - t0
+
+    def agree(got, want):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) / scale > ECHO_TOL
+        same = got.argmax(-1) == want.argmax(-1)
+        ok = (err <= ECHO_TOL and bool(same[sure].all())
+              and bool(torch.isfinite(got).all()))
+        return ok, (f"max |logit| err {err:.4e} of max |logit| {scale:.4f} "
+                    f"(limit {ECHO_TOL}); top-1 equal on {int(same.sum())} "
+                    f"of {B} rows ({int(sure.sum())} with a top-2 margin "
+                    f"above the limit)")
+
+    if not cfg.n_experts:
+        want = make_prefill_step(dcfg)(params, echo).float()[:, :cfg.vocab]
+        got, t_echo = run_decode()
+        prefill_calls, decode_steps, inits = prefill_calls + 1, n, 1
+        ok, how = agree(got, want)
+        log(f"{cfg.name} decode vs prefill on one {B} x {n} prompt on "
+            f"{card}: {how}; {n} decode steps in {t_echo:.3f} s "
+            f"({B * n / t_echo:.3f} decoded tokens/s)")
+        if cfg.family in ECHO_F32_FAMILIES:
+            # the same weights, upcast, hold the scan forms to each other
+            # without bf16's rounding, which this random model amplifies
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{cfg.name}: bf16 decode not finite")
+            c32 = dcfg.scaled(dtype="float32")
+            p32 = api.empty_params(c32, device)
+            with torch.no_grad():
+                for a, b in zip(p32.parameters(), params.parameters()):
+                    a.copy_(b)
+            want32 = make_prefill_step(c32)(p32, echo).float()[
+                :, :cfg.vocab]
+            got32, t32 = run_decode(c=c32, p=p32, step=make_decode_step(c32))
+            prefill_calls, decode_steps, inits = (prefill_calls + 1,
+                                                  decode_steps + n, inits + 1)
+            ok, how = agree(got32, want32)
+            log(f"{cfg.name} decode vs prefill in float32 (the bf16 weights "
+                f"upcast) on one {B} x {n} prompt on {card}: {how}; {n} "
+                f"decode steps in {t32:.3f} s; the bf16 check above is "
+                f"reported, this one decides")
+            del p32
+    else:
+        L = cfg.n_layers
+        with MoeRoutes(L) as routes:
+            want = make_prefill_step(dcfg)(params, echo).float()[
+                :, :cfg.vocab]
+            pre = [(e.reshape(B, n, -1), m.reshape(B, n))
+                   for e, m in routes.seen]
+            routes.seen = []
+            free, t_echo = run_decode()          # decode routes itself
+            flips, flip_margin, margin_min = 0, 0.0, float("inf")
+            for i, (e, _) in enumerate(routes.seen):
+                t, layer = divmod(i, L)
+                pe, pm = pre[layer][0][:, t], pre[layer][1][:, t]
+                bad = (e != pe).any(dim=-1)
+                flips += int(bad.sum())
+                if bool(bad.any()):
+                    flip_margin = max(flip_margin, float(pm[bad].max()))
+                margin_min = min(margin_min, float(pm.min()))
+            routes.pin = lambda layer: pre[layer][0][:, routes.step]
+            pinned, t_pin = run_decode(routes)   # decode routed as prefill
+        prefill_calls, decode_steps, inits = prefill_calls + 1, 2 * n, 2
+        ok_free, how_free = agree(free, want)
+        ok, how = agree(pinned, want)
+        log(f"{cfg.name} routing, decode vs prefill on one {B} x {n} prompt"
+            f" on {card}: {flips} of {B * n * L} (token, layer) choices "
+            f"flipped (largest prefill top-{cfg.top_k} margin among them "
+            f"{flip_margin:.4e} logits; smallest margin of any choice "
+            f"{margin_min:.4e})")
+        log(f"{cfg.name} decode routing itself vs prefill on {card}: "
+            f"{how_free}; {n} decode steps in {t_echo:.3f} s "
+            f"({B * n / t_echo:.3f} decoded tokens/s)")
+        log(f"{cfg.name} decode routed as prefill vs prefill on {card}: "
+            f"{how}; {n} decode steps in {t_pin:.3f} s")
+        if flips == 0 and not ok_free:
+            raise AssertionError(f"{cfg.name}: decode routed every token as "
+                                 f"prefill did and still disagrees")
+    if not ok:
+        raise AssertionError(f"{cfg.name}: decode's last logits disagree "
+                             f"with prefill's")
+
+    if cfg.family == "hybrid":          # the JAX launcher's default arch
+        largs = launcher.parse_args(["--no-smoke"])
+        if get_config(largs.arch, smoke=largs.smoke) != cfg:
+            raise AssertionError(f"the launcher's default {largs.arch} is "
+                                 f"not {cfg.name}")
+        res = launcher.run(cfg, params, requests=largs.requests,
+                           steps=largs.steps, batch=largs.batch,
+                           max_len=largs.max_len, device=device)
+        decode_steps += largs.steps
+        inits += 1
+        st = res.stats
+        sw = np.asarray(st["step_walls_s"])
+        if not (st["out_tokens"] > 0 and all(
+                0 <= x < cfg.vocab for t in res.tokens.values() for x in t)):
+            raise AssertionError(f"launcher run {st}")
+        log(f"{cfg.name} launcher (--no-smoke: {largs.requests} requests, "
+            f"batch {largs.batch}, {largs.steps} steps, max_len "
+            f"{largs.max_len}) on {card}: {st['out_tokens']} output tokens, "
+            f"{st['completed']} requests complete, {st['tokens_per_s']:.3f} "
+            f"output tokens/s, {largs.batch * largs.steps / st['wall_s']:.3f}"
+            f" decoded tokens/s; step wall median "
+            f"{np.median(sw) * 1e3:.3f} ms, p95 "
+            f"{np.percentile(sw, 95) * 1e3:.3f} ms")
+    launches = {"flash_attention": AK.launches(),
+                "decode_attention": DK.launches()}    # ... and ends here
+    expect = {"flash_attention": per_prefill * prefill_calls
+              + fl_per_step * decode_steps + fl_per_init * inits,
+              "decode_attention": dec_per_step * decode_steps}
+    if launches != expect:
+        raise AssertionError(f"{cfg.name} launches {launches}, expected "
+                             f"{expect}")
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"{cfg.name} path on {card}: {prefill_calls} prefill calls, "
+        f"{decode_steps} decode steps, {inits} decode-state inits; "
+        f"launches {launches} (exact); peak memory {peak} B "
+        f"({peak / 2**30:.2f} GiB; the weights {n_params * 2} B)")
+    del params, logits, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_phase(args, device, card: str) -> dict:
+    """Phase 15: every family of FAMILIES served on the card under
+    ``torch.no_grad()``, the plain attention versions forbidden → the
+    attention launches of the phase by kernel."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.flash_attention import ops as AO
+
+    def forbid(what):
+        def plain_on_card(*a, **kw):
+            raise AssertionError(f"the plain {what} ran on a family path")
+        return plain_on_card
+
+    saved = (AO.ref.attention_ref, DO.ref.decode_attention_ref)
+    AO.ref.attention_ref = forbid("flash attention")
+    DO.ref.decode_attention_ref = forbid("decode attention")
+    total = {"flash_attention": 0, "decode_attention": 0}
+    try:
+        with torch.no_grad():
+            for arch, layers in FAMILIES:
+                t0 = time.perf_counter()
+                got = serve_family(arch, layers, args, device, card)
+                for k in total:
+                    total[k] += got[k]
+                log(f"{arch} wall: {time.perf_counter() - t0:.1f} s")
+    finally:
+        AO.ref.attention_ref, DO.ref.decode_attention_ref = saved
+    log(f"families path: launches {total}; no plain attention ran")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2833,6 +3289,11 @@ def main(argv=None) -> int:
     launches, fwd_err = phase(14, train_phase, args, device, card)
     flash["launches"] += launches
     flash["max_abs_err"] = max(flash["max_abs_err"], fwd_err)
+    gc.collect()                        # phase 14's model, freed first
+    torch.cuda.empty_cache()
+    families = phase(15, family_phase, args, device, card)
+    for entry in attention:
+        entry["launches"] += families[entry["name"]]
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s (limit "
         f"1200 s, the kernels' build included)")
     print(json.dumps({"kernels": [fused, scores, *lookups, *attention]}))

@@ -17,6 +17,15 @@
 // The softcap applies before the mask, as at kernel.py:62-70; a masked
 // score is -1e30 and its probability 0.
 //
+// Queries may outnumber keys (Sq > Skv, so q_offset < 0) only with
+// causal = 0 and no window, as the JAX package's jnp blocked_attention
+// allows (whisper's cross-attention over a shorter encoder): every key is
+// then live for every query.  Both kernels derive their key range from
+// q_offset only under causal (the end) or window (the start), and the
+// bf16 kernel's per-tile mask test reads it only there too, so with
+// neither the range is [0, Skv) whatever q_offset is.  The wrapper
+// refuses Sq > Skv under either mask, where a range could come out empty.
+//
 // Two kernels, one per storage type.
 //
 // bfloat16 (the model's path): tensor cores fed by TMA.  One block of 288
@@ -942,7 +951,8 @@ static int launch_typed(int bf16, const void* q, const void* k, const void* v,
 // the stream's device; the wrapper (kernels/flash_attention/kernel.py) has
 // checked shapes, one type for q, k, v and o (bf16 = 1 for bfloat16, 0 for
 // float32), a contiguous head dimension, 16-byte aligned rows,
-// D in {32, 64, 128}, Hq % Hkv == 0 and 1 <= Sq <= Skv.  window <= 0 and
+// D in {32, 64, 128}, Hq % Hkv == 0, and 1 <= Sq <= Skv, or Sq > Skv >= 1
+// with causal = 0 and no window (q_offset < 0).  window <= 0 and
 // softcap <= 0 mean none.  Strides are in elements, (batch, head,
 // sequence) for q, k, v and o in turn.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue where a tensor map cannot be encoded.

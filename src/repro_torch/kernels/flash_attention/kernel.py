@@ -18,6 +18,7 @@ import math
 import torch
 
 from .._cuda import CudaLibrary
+from .ref import check_lengths
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -63,8 +64,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) of one
     type (float32 or bfloat16) on one CUDA device, each with a contiguous
-    last dimension (other strides are free) and 1 ≤ Sq ≤ Skv → (B, Hq, Sq,
-    D) in q's type, queries end-aligned to the keys.  ``out`` (same shape
+    last dimension (other strides are free) and 1 ≤ Sq ≤ Skv, or Sq > Skv
+    ≥ 1 with neither ``causal`` nor a ``window`` → (B, Hq, Sq, D) in q's
+    type, queries end-aligned to the keys.  ``out`` (same shape
     and type, last dimension contiguous) receives the result if given.
     :func:`kernel_path` names the kernel the type takes.  Raises on
     anything the kernel does not take."""
@@ -81,9 +83,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
                          f"not pair")
-    if D not in HEAD_DIMS or not 1 <= Sq <= Skv:
-        raise ValueError(f"head dim {D} (one of {HEAD_DIMS}) or Sq={Sq} "
-                         f"> Skv={Skv} unsupported")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} (one of {HEAD_DIMS}) unsupported")
+    check_lengths(Sq, Skv, causal, window)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")

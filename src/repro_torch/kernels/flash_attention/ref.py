@@ -17,6 +17,17 @@ import torch
 NEG_INF = -1e30
 
 
+def check_lengths(Sq: int, Skv: int, causal: bool, window) -> None:
+    """Raise unless every one of Sq ≥ 1 queries has a live key: Sq ≤ Skv,
+    or unmasked attention over Skv ≥ 1 keys."""
+    unmasked = not causal and window is None
+    if Sq < 1 or Skv < 1 or (Sq > Skv and not unmasked):
+        raise ValueError(f"flash attention needs 1 <= Sq <= Skv, or Skv >= "
+                         f"1 without a causal mask or window; got Sq={Sq}, "
+                         f"Skv={Skv}, causal={bool(causal)}, "
+                         f"window={window}")
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
                   softcap: float | None = None,

@@ -1,7 +1,7 @@
 """Serving launcher of the port: a continuous-batching decode loop with
 paged KV bookkeeping, on the card unless told otherwise.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --smoke --requests 8 --steps 32 [--device cpu]
 
 :func:`run` is the loop of the JAX package's ``repro.launch.serve`` and
@@ -9,7 +9,9 @@ keeps its quirks, since parity with it is the point: every slot decodes
 at one shared position ``pos`` (a request that joins late starts at the
 current ``pos``), a slot's cache is not cleared when a new request takes
 it, prompts are fed one token per step, and each request ends after 8
-output tokens.  ``--smoke`` defaults to on as there; ``--no-smoke`` reaches
+output tokens.  The loop is the same for every family: the decode state
+is ``api.init_decode_state``'s (a KV cache, a recurrent state, or
+whisper's cache over zero frames), one token a step.  ``--smoke`` defaults to on as there; ``--no-smoke`` reaches
 the full config (the JAX package's flag cannot be turned off).
 """
 from __future__ import annotations
@@ -126,8 +128,7 @@ def run(cfg, params, *, requests: int = 8, steps: int = 32, batch: int = 4,
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    # the JAX package defaults to zamba2-1.2b, a family not ported yet
-    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--arch", default="zamba2-1.2b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--requests", type=int, default=8)

@@ -1,20 +1,23 @@
-"""Uniform model API of the port: dispatch by ``cfg.family``.
+"""Uniform model API of the port: dispatch by ``cfg.family``, as the JAX
+package's ``repro.models.api``: ``dense``, ``moe`` and ``vlm`` run the
+transformer, ``ssm`` RWKV6, ``hybrid`` the Zamba2 hybrid and ``audio``
+whisper.
 
     param_specs(cfg)                        → TensorSpecs of the JAX tree
-    init_params(cfg, generator, device)     → a Transformer (random)
+    empty_params(cfg, device)               → the family's model, unfilled
+    init_params(cfg, generator, device)     → the family's model (random)
     forward_hidden(cfg, params, batch)      → (hidden, aux_loss)
     forward_train(cfg, params, batch)       → (logits, aux_loss)
     apply_unembed(cfg, params, hidden)      → logits, padded vocab masked
-    forward_decode(cfg, params, batch, cache, pos) → (logits, cache)
-    decode_state_specs(cfg, batch, max_len) → TensorSpecs of the cache
-    init_decode_state(cfg, params, batch, max_len) → zeroed cache
+    forward_decode(cfg, params, batch, state, pos) → (logits, state)
+    decode_state_specs(cfg, batch, max_len) → TensorSpecs of the state
+    init_decode_state(cfg, params, batch, max_len, frames=None) → state
     input_specs(cfg, shape)                 → TensorSpecs of a batch
 
-The dense family runs; the other families (moe, vlm, ssm, hybrid, audio)
-raise ``NotImplementedError`` until they are ported (ROADMAP.md,
-queue 1).  ``SHAPES`` names the four assigned input shapes, as in the
-JAX package.  The forward passes record gradients where the parameters
-require them; serving callers run them under ``torch.no_grad()``.
+``SHAPES`` names the four assigned input shapes, as in the JAX package.
+The forward passes record gradients where the parameters require them;
+serving callers run them under ``torch.no_grad()``.  Decode takes one new
+token a step in every family (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -22,23 +25,33 @@ import dataclasses
 
 import torch
 
-from . import transformer
+from . import rwkv, ssm, transformer, whisper
 from .config import ModelConfig
-from .transformer import TensorSpec
+from .params import TensorSpec
 
-_PORTED_FAMILIES = ("dense",)
+_TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family in _PORTED_FAMILIES:
+    if cfg.family in _TRANSFORMER_FAMILIES:
         return transformer
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-        f"(ROADMAP.md, queue 1)")
+    if cfg.family == "ssm":
+        return rwkv
+    if cfg.family == "hybrid":
+        return ssm
+    if cfg.family == "audio":
+        return whisper
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     return _mod(cfg).param_specs(cfg)
+
+
+def empty_params(cfg: ModelConfig, device=None):
+    """The family's parameter module on ``device`` (the card unless
+    named), its values unset."""
+    return _mod(cfg).empty_params(cfg, device)
 
 
 def init_params(cfg: ModelConfig, generator=0, device=None):
@@ -70,13 +83,28 @@ def forward_decode(cfg, params, batch, cache, pos):
 
 
 def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    return _mod(cfg).cache_specs(cfg, batch, max_len)
+    if cfg.family in _TRANSFORMER_FAMILIES:
+        return transformer.cache_specs(cfg, batch, max_len)
+    if cfg.family == "ssm":
+        return rwkv.state_specs(cfg, batch)
+    if cfg.family == "hybrid":
+        return ssm.state_specs(cfg, batch, max_len)
+    if cfg.family == "audio":
+        return whisper.cache_specs(cfg, batch, max_len)
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
-def init_decode_state(cfg: ModelConfig, params, batch: int,
-                      max_len: int) -> dict:
-    """A zeroed cache on the parameters' device."""
-    return _mod(cfg).init_cache(cfg, batch, max_len, params.device)
+def init_decode_state(cfg: ModelConfig, params, batch: int, max_len: int,
+                      frames=None) -> dict:
+    """The decode state on the parameters' device: zeroed, and for audio
+    the encoder's K/V of ``frames`` (zero frames by default)."""
+    if cfg.family == "audio":
+        if frames is None:
+            frames = torch.zeros((batch, cfg.n_frames, cfg.d_model),
+                                 dtype=cfg.torch_dtype, device=params.device)
+        return whisper.init_cache(cfg, params, frames, batch, max_len)
+    return {name: torch.zeros(s.shape, dtype=s.dtype, device=params.device)
+            for name, s in decode_state_specs(cfg, batch, max_len).items()}
 
 
 # ---------------------------------------------------------------------------

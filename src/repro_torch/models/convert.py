@@ -1,9 +1,13 @@
-"""Carry parameters between the JAX package's tree and the port's
-:class:`~repro_torch.models.transformer.Transformer`, both ways.
+"""Carry parameters between the JAX package's tree and the port's models
+(:class:`~repro_torch.models.params.ParamTree`), both ways, for every
+family.
 
-The tree is ``{"embed", "unembed", "final_norm", "blocks": {...}}`` with
-the blocks stacked on a leading layer axis, as
-``repro.models.transformer.init_params`` makes it.  Its leaves are numpy
+The tree is the JAX package's ``init_params`` tree of the config's
+family: for the transformer ``{"embed", "unembed", "final_norm",
+"blocks": {...}}`` with the blocks stacked on a leading layer axis;
+rwkv's ``blocks``; zamba2's mamba ``blocks`` and its one ``shared``
+block; whisper's ``enc_blocks``, ``dec_blocks``, positions and norms (the
+model's ``layout`` names them).  Its leaves are numpy
 arrays (pass each JAX leaf through ``np.asarray``) or CPU tensors (what
 ``repro_torch.train.checkpoint.restore_checkpoint`` gives).  A bfloat16
 numpy leaf is an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
@@ -15,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import api
+from . import params as P
 from .config import ModelConfig
-from .transformer import Transformer, block_shapes, top_shapes
 
 
 def tensor_from_numpy(x) -> torch.Tensor:
@@ -30,43 +35,45 @@ def tensor_from_numpy(x) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
+def _leaf(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 @torch.no_grad()
-def load_params_(cfg: ModelConfig, model: Transformer, tree: dict) -> None:
+def load_params_(cfg: ModelConfig, model: P.ParamTree, tree: dict) -> None:
     """Copy the tree's leaves into ``model``'s parameters in place (their
     device and type), leaf for leaf; a shape that differs raises."""
-    for name, shape in top_shapes(cfg).items():
-        t = tensor_from_numpy(tree[name])
+    for path, shape, params, stacked in P.leaves(model):
+        t = tensor_from_numpy(_leaf(tree, path))
         if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
-        getattr(model, name).copy_(t)
-    blocks = tree["blocks"]
-    for name, shape in block_shapes(cfg).items():
-        t = tensor_from_numpy(blocks[name])
-        if tuple(t.shape) != (cfg.n_layers, *shape):
-            raise ValueError(f"blocks.{name}: shape {tuple(t.shape)}, want "
-                             f"{(cfg.n_layers, *shape)}")
-        for layer, blk in enumerate(model.blocks):
-            getattr(blk, name).copy_(t[layer])
+            raise ValueError(f"{'.'.join(path)}: shape {tuple(t.shape)}, "
+                             f"want {shape}")
+        for i, p in enumerate(params):
+            p.copy_(t[i] if stacked else t)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict,
-                      device=None) -> Transformer:
-    """The JAX parameter tree → a Transformer on ``device`` (the card
+                      device=None) -> P.ParamTree:
+    """The JAX parameter tree → the family's model on ``device`` (the card
     unless named), leaf for leaf, in ``cfg``'s type."""
-    model = Transformer(cfg, device)
+    model = api.empty_params(cfg, device)
     load_params_(cfg, model, tree)
     return model
 
 
 @torch.no_grad()
-def params_tree(cfg: ModelConfig, model: Transformer) -> dict:
+def params_tree(cfg: ModelConfig, model: P.ParamTree) -> dict:
     """``model`` → the JAX package's tree of CPU tensors in the model's
-    type, each block leaf stacked over the layers."""
-    tree = {name: getattr(model, name).detach().cpu()
-            for name in top_shapes(cfg)}
-    tree["blocks"] = {name: torch.stack([getattr(blk, name).detach().cpu()
-                                         for blk in model.blocks])
-                      for name in block_shapes(cfg)}
+    type, each stacked leaf stacked over its layers."""
+    tree = {}
+    for path, _, params, stacked in P.leaves(model):
+        parts = [p.detach().cpu() for p in params]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack(parts) if stacked else parts[0]
     return tree
 
 
@@ -83,13 +90,12 @@ def tensor_to_numpy(t: torch.Tensor, bfloat16=None) -> np.ndarray:
     return t.view(torch.int16).numpy().view(bfloat16)
 
 
-def params_to_numpy(cfg: ModelConfig, model: Transformer,
+def params_to_numpy(cfg: ModelConfig, model: P.ParamTree,
                     bfloat16=None) -> dict:
     """``model`` → the JAX package's numpy tree: the same names, shapes,
     types and values as the tree ``params_from_numpy`` takes."""
-    tree = params_tree(cfg, model)
-    out = {name: tensor_to_numpy(tree[name], bfloat16)
-           for name in top_shapes(cfg)}
-    out["blocks"] = {name: tensor_to_numpy(t, bfloat16)
-                     for name, t in tree["blocks"].items()}
-    return out
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return tensor_to_numpy(node, bfloat16)
+    return conv(params_tree(cfg, model))

@@ -15,8 +15,13 @@ attention over kv blocks of 1,024 in PyTorch ops and returns dq, dk and
 dv.  That is the counterpart of the JAX package's gradient, which is XLA
 autodiff through its jnp ``blocked_attention`` with each kv block
 rematerialised (``repro/models/layers.py:90-92``): no Pallas kernel of
-the JAX package has a backward, so none is ported.  MoE (``moe_ffn``,
-``aux_load_balance_loss``) is not ported yet (ROADMAP.md, queue 1).
+the JAX package has a backward, so none is ported.
+
+The MoE FFN (:func:`moe_ffn`, :func:`aux_load_balance_loss`) is the JAX
+package's, computed in PyTorch ops as it computes it in jnp outside any
+Pallas kernel: routing, an expert-sorted dispatch into a capacity-padded
+(E, C, d) buffer per routing group, batched expert products and a gated
+scatter back.
 """
 from __future__ import annotations
 
@@ -178,3 +183,107 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with capacity dropping via expert-sorted permutation
+# ---------------------------------------------------------------------------
+MOE_GROUPS = 64  # routing groups; ≥ DP degree so each shard sorts locally
+
+
+def moe_capacity(t: int, top_k: int, capacity_factor: float,
+                 n_experts: int) -> int:
+    """Slots an expert has in a routing group of ``t`` tokens."""
+    return max(int(t * top_k * capacity_factor / n_experts), 4)
+
+
+def moe_groups(T: int) -> int:
+    """Routing groups of ``T`` tokens: groups of ≥ 256 tokens, at most
+    MOE_GROUPS, stepped down until they divide T (decode's few tokens
+    route as one group)."""
+    G = max(min(MOE_GROUPS, T // 256), 1)
+    while T % G:
+        G -= 1
+    return G
+
+
+def _moe_group_dispatch(x, gate_vals, experts, we_gate, we_up, we_down,
+                        top_k, capacity_factor):
+    """Every routing group at once (the JAX package vmaps one group):
+    x (G, t, d); gate_vals, experts (G, t, k) → ((G, t, d), the (G, t·k)
+    keep mask)."""
+    G, t, d = x.shape
+    E = we_gate.shape[0]
+    C = moe_capacity(t, top_k, capacity_factor, E)
+    dev = x.device
+    flat_e = experts.reshape(G, t * top_k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = flat_e.gather(-1, order)
+    # rank within expert group = position − group start
+    group_start = torch.searchsorted(
+        sorted_e, torch.arange(E, device=dev).expand(G, E).contiguous())
+    pos_in_e = torch.arange(t * top_k, device=dev) \
+        - group_start.gather(-1, sorted_e)
+    keep = pos_in_e < C
+    slot = torch.where(keep, sorted_e * C + pos_in_e, E * C)  # overflow slot
+    tok = order // top_k
+    rows = x.gather(1, tok[..., None].expand(G, t * top_k, d))
+    # the overflow slot E·C takes every dropped row (which one lands is
+    # unspecified, as in the JAX package); it is cut off unread
+    buf = x.new_zeros((G, E * C + 1, d)).scatter(
+        1, slot[..., None].expand(G, t * top_k, d), rows)
+    # (G, E, C, d) → (E, G·C, d): one batched product an expert
+    buf = buf[:, :-1].reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    h = F.silu(torch.bmm(buf, we_gate)) * torch.bmm(buf, we_up)
+    y = torch.bmm(h, we_down).reshape(E, G, C, d).transpose(0, 1) \
+        .reshape(G, E * C, d)
+    idx = torch.clamp(slot, max=E * C - 1)
+    contrib = y.gather(1, idx[..., None].expand(G, t * top_k, d))
+    contrib = contrib.masked_fill(~keep[..., None], 0)
+    g = gate_vals.reshape(G, t * top_k).gather(-1, order)[..., None] \
+        .to(x.dtype)
+    out = torch.zeros_like(x).scatter_add(
+        1, tok[..., None].expand(G, t * top_k, d), contrib * g)
+    return out, keep
+
+
+def _route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """→ (softmax probabilities (T, E), top-k gates (T, k), experts (T,
+    k)), the logits in float32."""
+    logits = x.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, experts = torch.topk(probs, top_k, dim=-1)
+    return probs, gate_vals, experts
+
+
+def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we_gate: torch.Tensor,
+            we_up: torch.Tensor, we_down: torch.Tensor, *, top_k: int,
+            capacity_factor: float) -> torch.Tensor:
+    """x (T, d) → (T, d): top-k routing with renormalised gates, then per
+    routing group (:func:`moe_groups`) an argsort of the (token, expert)
+    assignments by expert, the first :func:`moe_capacity` of each expert
+    gathered into an (E, C, d) buffer, the expert SwiGLU as batched
+    products, and the gated outputs scattered back; assignments beyond
+    capacity are dropped (:func:`_moe_group_dispatch` also returns which
+    were kept)."""
+    T, d = x.shape
+    _, gate_vals, experts = _route(x, router_w, top_k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    G = moe_groups(T)
+    out, _ = _moe_group_dispatch(
+        x.reshape(G, T // G, d), gate_vals.reshape(G, T // G, top_k),
+        experts.reshape(G, T // G, top_k), we_gate, we_up, we_down, top_k,
+        capacity_factor)
+    return out.reshape(T, d)
+
+
+def aux_load_balance_loss(x: torch.Tensor, router_w: torch.Tensor,
+                          top_k: int) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss (fraction·prob per
+    expert)."""
+    probs, _, experts = _route(x, router_w, top_k)
+    E = probs.shape[-1]
+    onehot = F.one_hot(experts, E).sum(dim=-2).float()       # (T, E)
+    frac = onehot.mean(dim=0) / top_k
+    imp = probs.mean(dim=0)
+    return E * torch.sum(frac * imp)

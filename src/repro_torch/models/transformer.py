@@ -1,17 +1,21 @@
-"""Decoder-only transformer of the port: the dense family.
+"""Decoder-only transformer of the port: the dense, MoE and VLM families.
 
 The JAX package's ``repro.models.transformer`` holds its parameters as a
 pytree with the blocks stacked on a leading layer axis and scans over
 them.  Here a :class:`Transformer` module holds the same leaves under the
 same names (``embed``, ``unembed``, ``final_norm`` and, per block,
 ``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``, ``wo``, ``qnorm``, ``knorm``,
-``w_gate``, ``w_up``, ``w_down``), one block per layer in an
-``nn.ModuleList``, and the forward passes loop over them.  Weights are
-stored ``(in, out)`` and applied as ``x @ w``, attention tensors are
-``(B, H, S, D)`` and caches ``(L, B, Hkv, Smax, hd)``, as in the JAX
-package.  Prefill and training attention is the flash-attention kernel,
-decode attention the decode-attention kernel (their plain versions on the
-CPU).
+and ``w_gate``, ``w_up``, ``w_down`` or, for MoE, ``router``,
+``we_gate``, ``we_up``, ``we_down`` and the shared expert's ``ws_gate``,
+``ws_up``, ``ws_down``), one block per layer in an ``nn.ModuleList``
+(``repro_torch.models.params``), and the forward passes loop over them.
+Weights are stored ``(in, out)`` and applied as ``x @ w``, attention
+tensors are ``(B, H, S, D)`` and caches ``(L, B, Hkv, Smax, hd)``, as in
+the JAX package.  Prefill and training attention is the flash-attention
+kernel, decode attention the decode-attention kernel (their plain
+versions on the CPU).  The MoE FFN is ``layers.moe_ffn`` and its
+load-balancing loss is averaged over the layers; a VLM batch's
+``patch_embeds`` replace the token embeddings at ``patch_positions``.
 
 Parameters are created frozen (``requires_grad`` false), so the serving
 paths, which also run under ``torch.no_grad()``, build no autograd graph;
@@ -22,33 +26,24 @@ package's ``jax.checkpoint`` around its scan body.
 
 Decode applies each layer's sliding window and the attention softcap
 inside the decode kernel, as the JAX package's ``decode_attention_jnp``
-does (gemma2).  Not ported yet (ROADMAP.md, queue 1): the MoE FFN and
-decode of more than one new token per step.
+does (gemma2).  Not ported yet (ROADMAP.md, queue 1): decode of more than
+one new token per step.
 """
 from __future__ import annotations
 
-import dataclasses
-import math
-
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels._cuda import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
 
+from . import params as P
 from .config import ModelConfig
-from .layers import blocked_attention, rms_norm, rope, rope_tables, swiglu
+from .layers import (aux_load_balance_loss, blocked_attention, moe_ffn,
+                     rms_norm, rope, rope_tables, swiglu)
+from .params import TensorSpec
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
-
-
-@dataclasses.dataclass(frozen=True)
-class TensorSpec:
-    """Shape and type of a tensor (the counterpart of a
-    ``jax.ShapeDtypeStruct``)."""
-    shape: tuple
-    dtype: torch.dtype
 
 
 # ---------------------------------------------------------------------------
@@ -64,8 +59,14 @@ def block_shapes(cfg: ModelConfig) -> dict:
         shapes["qnorm"] = (hd,)
         shapes["knorm"] = (hd,)
     if cfg.n_experts:
-        raise NotImplementedError(f"MoE blocks are {_ROADMAP}")
-    shapes.update({"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)})
+        E = cfg.n_experts
+        shapes.update({"router": (d, E), "we_gate": (E, d, ff),
+                       "we_up": (E, d, ff), "we_down": (E, ff, d)})
+        if cfg.shared_expert:
+            shapes.update({"ws_gate": (d, ff), "ws_up": (d, ff),
+                           "ws_down": (ff, d)})
+    else:
+        shapes.update({"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)})
     return shapes
 
 
@@ -75,96 +76,57 @@ def top_shapes(cfg: ModelConfig) -> dict:
             "final_norm": (d,)}
 
 
+def layout(cfg: ModelConfig) -> dict:
+    """The JAX package's tree: the top leaves and ``blocks``."""
+    return {**top_shapes(cfg), "blocks": P.Stack(cfg.n_layers,
+                                                 block_shapes(cfg))}
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     """The JAX package's parameter tree as :class:`TensorSpec` leaves:
     ``embed``, ``unembed``, ``final_norm`` and ``blocks`` with every block
     leaf stacked on a leading layer axis."""
-    dt = cfg.torch_dtype
-    spec = {name: TensorSpec(shape, dt)
-            for name, shape in top_shapes(cfg).items()}
-    spec["blocks"] = {name: TensorSpec((cfg.n_layers, *shape), dt)
-                      for name, shape in block_shapes(cfg).items()}
-    return spec
+    return P.specs(layout(cfg), cfg.torch_dtype)
 
 
-def _frozen(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
-class Block(nn.Module):
-    """One layer's parameters."""
-
-    def __init__(self, cfg: ModelConfig, device, dtype):
-        super().__init__()
-        for name, shape in block_shapes(cfg).items():
-            setattr(self, name, _frozen(shape, dtype, device))
-
-
-class Transformer(nn.Module):
-    """The parameters of a dense decoder-only transformer, frozen until
+class Transformer(P.ParamTree):
+    """The parameters of a decoder-only transformer, frozen until
     ``requires_grad_()``.  Use :func:`init_params` or
     ``repro_torch.models.convert.params_from_numpy`` to fill them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        super().__init__()
-        device = resolve_device(device)
-        dtype = cfg.torch_dtype
-        for name, shape in top_shapes(cfg).items():
-            setattr(self, name, _frozen(shape, dtype, device))
-        self.blocks = nn.ModuleList(Block(cfg, device, dtype)
-                                    for _ in range(cfg.n_layers))
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
+        super().__init__(layout(cfg), resolve_device(device),
+                         cfg.torch_dtype)
 
 
-def _init_scale(stacked_shape: tuple) -> float:
-    """The JAX package's scale for a leaf of this shape (with the layer
-    axis for block leaves): 1/sqrt(shape[-2]) for 2-D and up, else 0.02.
-    A block's (L, hd) ``qnorm``/``knorm`` thus draws at 1/sqrt(L), as
-    there."""
-    if len(stacked_shape) >= 2:
-        return 1.0 / math.sqrt(stacked_shape[-2])
-    return 0.02
+empty_params = Transformer
 
 
-@torch.no_grad()
+def _init_rule(name: str, tree_shape: tuple):
+    """The JAX package's init (``transformer.py:65-81``): normal ·
+    1/sqrt(shape[-2]) for 2-D and up (a block leaf with its layer axis,
+    so a block's (L, hd) ``qnorm`` draws at 1/sqrt(L)), else 0.02; the
+    norms ``final_norm``, ``ln1`` and ``ln2`` at zero (``rms_norm``
+    applies ``1 + scale``)."""
+    if name in ("final_norm", "ln1", "ln2"):
+        return torch.zeros
+    return P.fan_in_scale(tree_shape) if len(tree_shape) >= 2 else 0.02
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
                 device=None) -> Transformer:
     """Random parameters drawn on ``device`` (the card unless named) from
     ``generator`` (or a seed), at the JAX package's scales
-    (``transformer.py:65-81``): normal · 1/sqrt(fan_in), with
-    ``final_norm``, ``ln1`` and ``ln2`` at zero (``rms_norm`` applies
-    ``1 + scale``).  The numbers differ from ``jax.random``'s; tests carry
-    the JAX package's parameters across with ``params_from_numpy``."""
-    model = Transformer(cfg, device)
-    dev = model.device
-    if not isinstance(generator, torch.Generator):
-        generator = torch.Generator(device=dev).manual_seed(int(generator))
-
-    def fill(param: nn.Parameter, stacked_shape: tuple) -> None:
-        x = torch.randn(param.shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        param.copy_(x.mul_(_init_scale(stacked_shape)))
-
-    for name, shape in top_shapes(cfg).items():
-        fill(getattr(model, name), shape)
-    for blk in model.blocks:
-        for name, shape in block_shapes(cfg).items():
-            fill(getattr(blk, name), (cfg.n_layers, *shape))
-    model.final_norm.zero_()
-    for blk in model.blocks:
-        blk.ln1.zero_()
-        blk.ln2.zero_()
-    return model
+    (:func:`_init_rule`).  The numbers differ from ``jax.random``'s;
+    tests carry the JAX package's parameters across with
+    ``params_from_numpy``."""
+    return P.init_(Transformer(cfg, device), generator, _init_rule)
 
 
 # ---------------------------------------------------------------------------
 # block body
 # ---------------------------------------------------------------------------
-def _attention(cfg: ModelConfig, p: Block, x: torch.Tensor, tables, *,
+def _attention(cfg: ModelConfig, p, x: torch.Tensor, tables, *,
                window, cache=None, pos=None) -> torch.Tensor:
     """x (B, S, d) → (B, S, d); ``cache`` is this layer's (k, v, kv_len):
     (B, Hkv, Smax, hd) views into the model's cache, written in place, and
@@ -198,12 +160,27 @@ def _attention(cfg: ModelConfig, p: Block, x: torch.Tensor, tables, *,
     return out.to(x.dtype) @ p.wo
 
 
-def _block(cfg: ModelConfig, p: Block, x: torch.Tensor, tables, *, window,
-           cache=None, pos=None) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, p, x: torch.Tensor):
+    """Dense or MoE FFN on (B, S, d) → (out, aux loss)."""
+    B, S, d = x.shape
+    if not cfg.n_experts:
+        return swiglu(x, p.w_gate, p.w_up, p.w_down), 0.0
+    flat = x.reshape(B * S, d)
+    y = moe_ffn(flat, p.router, p.we_gate, p.we_up, p.we_down,
+                top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    aux = aux_load_balance_loss(flat, p.router, cfg.top_k)
+    if cfg.shared_expert:
+        y = y + swiglu(flat, p.ws_gate, p.ws_up, p.ws_down)
+    return y.reshape(B, S, d), aux
+
+
+def _block(cfg: ModelConfig, p, x: torch.Tensor, tables, *, window,
+           cache=None, pos=None):
+    """One layer → (x, its aux loss)."""
     x = x + _attention(cfg, p, rms_norm(x, p.ln1), tables, window=window,
                        cache=cache, pos=pos)
-    h = rms_norm(x, p.ln2)
-    return x + swiglu(h, p.w_gate, p.w_up, p.w_down)
+    out, aux = _ffn(cfg, p, rms_norm(x, p.ln2))
+    return x + out, aux
 
 
 def window_for(cfg: ModelConfig, layer: int):
@@ -216,28 +193,45 @@ def window_for(cfg: ModelConfig, layer: int):
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
-def _embed(model: Transformer, batch: dict) -> torch.Tensor:
-    tokens = torch.as_tensor(batch["tokens"], device=model.device)
+def embed_tokens(model, tokens) -> torch.Tensor:
+    """The rows of ``model.embed`` of ``tokens`` (any integer type, on
+    any device)."""
+    tokens = torch.as_tensor(tokens, device=model.device)
     return model.embed[tokens.long()]
 
 
+def _embed(cfg: ModelConfig, model: Transformer, batch: dict) -> torch.Tensor:
+    x = embed_tokens(model, batch["tokens"])
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        # the stub vision frontend's embeddings over the image-slot tokens
+        pe = torch.as_tensor(batch["patch_embeds"], device=x.device)
+        pp = torch.as_tensor(batch["patch_positions"],
+                             device=x.device).long()          # (B, P)
+        rows = torch.arange(x.shape[0], device=x.device)[:, None]
+        x = x.index_put((rows.expand_as(pp), pp), pe.to(x.dtype))
+    return x
+
+
 def forward_hidden(cfg: ModelConfig, model: Transformer, batch: dict):
-    """→ (final-normed hidden (B, S, d), aux loss 0.0) — pre-unembed.
-    Differentiable; with ``cfg.remat`` and gradients recorded each block
-    is recomputed in the backward."""
-    x = _embed(model, batch)
+    """→ (final-normed hidden (B, S, d), aux loss) — pre-unembed; the aux
+    loss is the MoE load-balancing loss averaged over the layers (0.0
+    for a dense model).  Differentiable; with ``cfg.remat`` and gradients
+    recorded each block is recomputed in the backward."""
+    x = _embed(cfg, model, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     tables = rope_tables(positions, cfg.hd, cfg.rope_theta)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
     for layer, blk in enumerate(model.blocks):
         window = window_for(cfg, layer)
         if remat:
-            x = checkpoint(_block, cfg, blk, x, tables, window=window,
-                           use_reentrant=False)
+            x, a = checkpoint(_block, cfg, blk, x, tables, window=window,
+                              use_reentrant=False)
         else:
-            x = _block(cfg, blk, x, tables, window=window)
-    return rms_norm(x, model.final_norm), 0.0
+            x, a = _block(cfg, blk, x, tables, window=window)
+        aux = aux + a
+    return rms_norm(x, model.final_norm), aux / cfg.n_layers
 
 
 def unembed(cfg: ModelConfig, model: Transformer,
@@ -268,14 +262,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for name, s in cache_specs(cfg, batch, max_len).items()}
 
 
-def _check_decode_supported(cfg: ModelConfig, n_new: int = 1) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(f"decode of MoE blocks is {_ROADMAP}")
+def check_decode_supported(n_new: int, pos: int, smax: int | None) -> int:
+    """Raise for what the port's decode does not take: more than one new
+    token a step (the JAX package's decode attention has no causal mask
+    among new tokens), or a position past a cache of ``smax`` positions
+    (the JAX package's dynamic_update_slice would clamp it) → ``pos`` as
+    an int."""
     if n_new != 1:
         raise NotImplementedError(
             f"decode of {n_new} new tokens at once is {_ROADMAP}: the JAX "
             f"package's decode attention has no causal mask among new "
             f"tokens")
+    pos = int(pos)
+    if smax is not None and not 0 <= pos <= smax - n_new:
+        raise ValueError(f"decode position {pos} outside a cache of "
+                         f"{smax} positions")
+    return pos
 
 
 @torch.no_grad()
@@ -286,20 +288,15 @@ def forward_decode(cfg: ModelConfig, model: Transformer, batch: dict,
     every row.  → (logits (B, 1, V), the same cache).  A position past
     the cache raises (the JAX package's dynamic_update_slice would clamp
     it)."""
-    x = _embed(model, batch)
+    x = _embed(cfg, model, batch)
     B, S, _ = x.shape
-    _check_decode_supported(cfg, S)
-    pos = int(pos)
-    smax = cache["k"].shape[3]
-    if not 0 <= pos <= smax - S:
-        raise ValueError(f"decode position {pos} outside a cache of "
-                         f"{smax} positions")
+    pos = check_decode_supported(S, pos, cache["k"].shape[3])
     positions = (pos + torch.arange(S, device=x.device)).expand(B, S)
     tables = rope_tables(positions, cfg.hd, cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
     kv_len = torch.full((B,), pos + S, dtype=torch.int32, device=x.device)
     for layer, blk in enumerate(model.blocks):
-        x = _block(cfg, blk, x, tables, window=window_for(cfg, layer),
-                   cache=(ck[layer], cv[layer], kv_len), pos=pos)
+        x, _ = _block(cfg, blk, x, tables, window=window_for(cfg, layer),
+                      cache=(ck[layer], cv[layer], kv_len), pos=pos)
     x = rms_norm(x, model.final_norm)
     return unembed(cfg, model, x), cache

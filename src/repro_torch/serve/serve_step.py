@@ -1,6 +1,6 @@
 """Serving steps of the port: prefill (full-sequence forward, last-position
-logits) and decode (one token against the KV cache), as in the JAX
-package's ``repro.serve.serve_step``.  Both run under ``torch.no_grad()``:
+logits) and decode (one token against the KV cache / recurrent state), as
+in the JAX package's ``repro.serve.serve_step``, for every family.  Both run under ``torch.no_grad()``:
 serving builds no autograd graph, whatever the parameters require."""
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ def make_prefill_step(cfg):
 
 def make_decode_step(cfg):
     """decode(params, batch, state, pos) → (next-token logits (B, V),
-    state); the state (the KV cache) is updated in place."""
+    state); a KV cache is updated in place, a recurrent state may come
+    back as new tensors (``api.forward_decode``)."""
 
     @torch.no_grad()
     def decode(params, batch, state, pos):
@@ -39,12 +40,14 @@ def make_decode_step(cfg):
     return decode
 
 
-def greedy_generate(cfg, params, prompt_tokens, n_steps: int, max_len: int):
+def greedy_generate(cfg, params, prompt_tokens, n_steps: int, max_len: int,
+                    frames=None):
     """Simple greedy decoding loop (examples/tests); prompt (B, S0) →
-    (B, n_steps) tokens.  The prompt is fed one token at a time."""
+    (B, n_steps) tokens.  The prompt is fed one token at a time; an audio
+    model encodes ``frames`` (zero frames by default) first."""
     prompt = torch.as_tensor(prompt_tokens, device=params.device)
     B, S0 = prompt.shape
-    state = api.init_decode_state(cfg, params, B, max_len)
+    state = api.init_decode_state(cfg, params, B, max_len, frames=frames)
     decode = make_decode_step(cfg)
     logits = None
     for t in range(S0):

@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import TensorSpec
+from repro_torch.models.params import TensorSpec
 
 UPDATE_ELEMENTS = 1 << 24      # elements of one leaf updated at a time
 

@@ -244,6 +244,36 @@ def test_flash_writes_through_strides_and_refuses_more_queries_than_keys():
     assert AK.launches() == before
 
 
+@pytest.mark.parametrize("Sq,Skv,Hq,Hkv,D,softcap", [
+    (48, 32, 2, 2, 32, None),        # whisper SMOKE: decoder past 32 frames
+    (100, 7, 4, 2, 16, None),
+    (9, 1, 2, 1, 16, 30.0),
+    (1, 50, 4, 4, 32, None),         # cross-attention at decode
+])
+def test_flash_plain_noncausal_with_more_queries_than_keys(Sq, Skv, Hq, Hkv,
+                                                           D, softcap):
+    """Non-causal attention with Sq > Skv (whisper's cross-attention over a
+    shorter encoder): every query sees every key, as the JAX package's
+    ``blocked_attention`` computes it; float32 at the flash limit 2e-5.
+    With a causal mask or a window the case still raises."""
+    from repro.models.layers import blocked_attention
+    rng = np.random.default_rng(Sq * 100 + Skv)
+    q = rng.normal(size=(2, Hq, Sq, D)).astype(np.float32)
+    k = rng.normal(size=(2, Hkv, Skv, D)).astype(np.float32)
+    v = rng.normal(size=(2, Hkv, Skv, D)).astype(np.float32)
+    want = np.asarray(blocked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+        softcap=softcap, block_k=16))
+    got = fa.flash_attention(_t(q), _t(k), _t(v), causal=False,
+                             softcap=softcap)
+    assert got.shape == (2, Hq, Sq, D)
+    assert np.abs(got.numpy() - want).max() < 2e-5
+    if Sq > Skv:
+        for opts in (dict(causal=True), dict(causal=False, window=4)):
+            with pytest.raises(ValueError, match="causal"):
+                fa.flash_attention(_t(q), _t(k), _t(v), **opts)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers' host-side arithmetic (pure functions of shape and SM count)
 # ---------------------------------------------------------------------------

@@ -74,6 +74,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "repro_torch.kernels.decode_attention.kernel",
                  "repro_torch.kernels.flash_attention.kernel",
                  "repro_torch.models.transformer", "repro_torch.models.api",
+                 "repro_torch.models.params", "repro_torch.models.layers",
+                 "repro_torch.models.linear_scan", "repro_torch.models.ssm",
+                 "repro_torch.models.rwkv", "repro_torch.models.whisper",
+                 "repro_torch.configs.zamba2_1p2b",
                  "repro_torch.models.convert", "repro_torch.configs.qwen3_14b",
                  "repro_torch.serve.serve_step", "repro_torch.serve.kvcache",
                  "repro_torch.launch.serve", "repro_torch.fleet",

@@ -746,3 +746,94 @@ def test_a_training_step_on_the_card_equals_the_cpus(card, dtype,
         for key, w in want["blocks"].items():
             torch.testing.assert_close(got["blocks"][key], w, rtol=1e-5,
                                        atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the other families: non-causal Sq > Skv, and each family on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("Sq,Skv", [(448, 32), (4096, 1500), (129, 95),
+                                    (300, 1), (1, 1500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_noncausal_with_more_queries_than_keys(card, Sq, Skv,
+                                                            dtype):
+    """Whisper's cross-attention: every query sees every key, also when
+    the decoder is longer than the encoder (the kernel's key range does
+    not read the negative query offset without a causal mask or
+    window)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, D = 2, 12, 64
+    q, k, v = _randn(card, Sq + Skv, (B, H, Sq, D), (B, H, Skv, D),
+                     (B, H, Skv, D), dtype=dtype)
+    before = AK.launches()
+    o = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert AK.launches() == before + 1 and o.dtype == dtype
+    want = fa.attention_ref(q, k, v, causal=False)
+    assert float((o.float() - want).abs().max()) <= ATTN_TOL[dtype][3]
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q.new_zeros((B, H, 2, D)), k[:, :, :1],
+                           v[:, :, :1])
+
+
+FAMILY_ARCHS = ["llama4_scout_17b_a16e", "grok1_314b", "llava_next_34b",
+                "zamba2_1p2b", "rwkv6_7b", "whisper_small"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_family_forward_and_decode_on_the_card_equal_the_cpus(card, arch,
+                                                                dtype):
+    """One SMOKE forward and two decode steps of each new family on the
+    card (through the attention kernels, none plain) against the CPU's
+    (the plain versions) from the same parameters: logits within 1e-4 of
+    max |logit| in float32 (the flash limit through two layers), 3e-2 in
+    bfloat16 (tests/test_torch_models.py's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.convert import load_params_, params_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True).scaled(dtype=dtype)
+    cpu = api.init_params(cfg, 5, "cpu")
+    gpu = api.empty_params(cfg, card)
+    load_params_(cfg, gpu, params_tree(cfg, cpu))
+    rng = np.random.default_rng(8)
+    B, S = 2, 40                         # S past whisper SMOKE's 32 frames
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab, (B, S)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)).to(
+                cfg.torch_dtype)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32) * 0.05).to(
+                cfg.torch_dtype)
+        batch["patch_positions"] = torch.from_numpy(np.stack(
+            [rng.choice(S, cfg.n_patches, replace=False) for _ in range(B)])
+            .astype(np.int32))
+    out = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        dev = model.device
+        before = (AK.launches(), DK.launches())
+        with torch.no_grad():
+            logits, _ = api.forward_train(
+                cfg, model, {k: v.to(dev) for k, v in batch.items()})
+            frames = batch["frames"].to(dev) if "frames" in batch else None
+            state = api.init_decode_state(cfg, model, B, 8, frames=frames)
+            steps = []
+            for t in range(2):
+                d, state = api.forward_decode(
+                    cfg, model, {"tokens": batch["tokens"][:, t:t + 1]
+                                 .to(dev)}, state, t)
+                steps.append(d.float().cpu())
+        out[name] = (logits.float().cpu(), steps,
+                     (AK.launches() - before[0], DK.launches() - before[1]))
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    want, got = out["cpu"], out["cuda"]
+    for g, w in zip([got[0], *got[1]], [want[0], *want[1]]):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) / scale < tol
+    assert want[2] == (0, 0)
+    uses_attention = cfg.family != "ssm"
+    assert (got[2][0] > 0) == uses_attention
+    assert (got[2][1] > 0) == uses_attention

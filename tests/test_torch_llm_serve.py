@@ -199,3 +199,78 @@ def test_serve_exports_the_steps_and_greedy_generates(served):
     top2 = logits.topk(2).values
     sure = (top2[:, 0] - top2[:, 1]) / logits.abs().max() > TOL
     assert torch.equal(out[:, 0][sure], logits.argmax(-1)[sure])
+
+
+def test_launcher_main_replays_the_jax_main_at_its_default_arch(
+        monkeypatch, capsys):
+    """Both packages' ``main`` at their defaults (zamba2-1.2b SMOKE, 8
+    requests, batch 4, 32 steps; float32 here) from the JAX package's
+    seed-0 parameters: the port's feeds equal the JAX loop's and each
+    step's logits agree within 1e-4 of max |logit|, its tokens wherever
+    the JAX top-2 margin exceeds that; the two summaries count the same
+    tokens and requests."""
+    import sys
+
+    import repro.configs as jconfigs
+    from repro.launch import serve as jlauncher
+    from repro_torch import configs as tconfigs
+    real_jget, real_tget = jconfigs.get_config, tconfigs.get_config
+    monkeypatch.setattr(jconfigs, "get_config", lambda a, smoke=False:
+                        real_jget(a, smoke).scaled(dtype="float32"))
+    trees, steps = [], []
+    real_init, real_jit = japi.init_params, jax.jit
+
+    def init(cfg, rng):
+        p = real_init(cfg, rng)
+        trees.append(jax.tree.map(np.asarray, p))
+        return p
+
+    def recording_jit(fn, **kw):
+        step = real_jit(fn, **kw)
+
+        def run(params, batch, state, pos):
+            logits, state = step(params, batch, state, pos)
+            steps.append((np.asarray(batch["tokens"]), np.asarray(logits)))
+            return logits, state
+        return run
+
+    monkeypatch.setattr(japi, "init_params", init)
+    monkeypatch.setattr(jax, "jit", recording_jit)
+    monkeypatch.setattr(sys, "argv", ["serve"])
+    jlauncher.main()
+    want_out = capsys.readouterr().out
+    monkeypatch.undo()
+
+    monkeypatch.setattr(tconfigs, "get_config", lambda a, smoke=False:
+                        real_tget(a, smoke).scaled(dtype="float32"))
+    monkeypatch.setattr(launcher, "get_config", tconfigs.get_config)
+    runs = []
+    real_run = launcher.run
+
+    def run(cfg, params, **kw):
+        runs.append(real_run(cfg, params, keep_logits=True, **kw))
+        return runs[-1]
+
+    monkeypatch.setattr(launcher.api, "init_params",
+                        lambda cfg, gen, device: params_from_numpy(
+                            cfg, trees[0], device=device))
+    monkeypatch.setattr(launcher, "run", run)
+    launcher.main(["--device", "cpu"])
+    got_out = capsys.readouterr().out
+    assert "zamba2-1.2b" in got_out and "zamba2-1.2b" in want_out
+    res = runs[0]
+    vocab = real_tget("zamba2-1.2b", True).vocab
+    assert len(res.feeds) == len(steps) == 32
+    for pos, ((feed, want), got) in enumerate(zip(steps, res.logits)):
+        np.testing.assert_array_equal(res.feeds[pos], feed)
+        want, got = want[:, :vocab], got[:, :vocab]
+        scale = np.abs(want).max()
+        assert np.abs(got - want).max() / scale < TOL, pos
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        sure = (top2[:, 1] - top2[:, 0]) / scale > TOL
+        assert np.array_equal(got.argmax(-1)[sure], want.argmax(-1)[sure])
+
+    def summary(out):
+        line = next(x for x in out.splitlines() if x.startswith("[done]"))
+        return line.split(",")[:3]
+    assert summary(got_out) == summary(want_out)

@@ -1,6 +1,8 @@
-"""The port's configs and dense transformer against the JAX package's, on
-the same parameters (carried across with ``params_from_numpy``) and the
-same numpy-seeded tokens, at the SMOKE sizes.
+"""The port's configs and models against the JAX package's, on the same
+parameters (carried across with ``params_from_numpy``) and the same
+numpy-seeded tokens (and whisper's frames, llava's patch embeddings), at
+the SMOKE sizes of all ten configs: the dense, MoE, VLM, hybrid, RWKV and
+audio families.
 
 Tolerances, over max |logit| of the JAX side: float32 1e-4 (the two
 frameworks sum in other orders through two layers); bfloat16 3e-2 (the
@@ -8,7 +10,9 @@ frameworks round activations to bf16 at other places, and the port's
 decode attention computes in float32 where the JAX package's feeds bf16
 to its einsums), with top-1 equal wherever the JAX top-2 margin exceeds
 that.  Decode against the port's own prefill: 5e-3 absolute, as
-``tests/test_models_smoke.py`` holds the JAX package.
+``tests/test_models_smoke.py`` holds the JAX package (MoE at the capacity
+factor E / k, where no token is dropped: the JAX test leaves MoE out for
+the drops).
 """
 import dataclasses
 
@@ -24,12 +28,14 @@ from repro.serve.serve_step import make_decode_step as j_decode_step
 from repro.serve.serve_step import make_prefill_step as j_prefill_step
 from repro_torch import configs as tconfigs
 from repro_torch.models import api
-from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
+from repro_torch.models import params as P
+from repro_torch.models.convert import (params_from_numpy, params_tree,
+                                        tensor_from_numpy)
 from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.serve import make_decode_step, make_prefill_step
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-ARCHS = ["qwen3_14b", "glm4_9b"]
+ARCHS = list(tconfigs.ARCHS)             # all ten SMOKE configs
 B, S, MAX = 2, 12, 16
 
 
@@ -57,6 +63,39 @@ def pair():
 def _tokens(cfg, seed=0, shape=(B, S)):
     return np.random.default_rng(seed).integers(
         1, cfg.vocab, shape).astype(np.int32)
+
+
+def _batch(cfg, seed=0, shape=(B, S)):
+    """Tokens and the family's stub inputs as numpy: whisper's frames,
+    llava's patch embeddings at distinct positions."""
+    rng = np.random.default_rng(seed + 100)
+    batch = {"tokens": _tokens(cfg, seed, shape)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (shape[0], cfg.n_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        n = min(cfg.n_patches, shape[1] // 2)
+        batch["patch_embeds"] = 0.05 * rng.standard_normal(
+            (shape[0], n, cfg.d_model)).astype(np.float32)
+        batch["patch_positions"] = np.stack(
+            [rng.choice(shape[1], n, replace=False)
+             for _ in range(shape[0])]).astype(np.int32)
+    return batch
+
+
+def _jbatch(cfg, batch):
+    return {k: jnp.asarray(v).astype(cfg.jdtype) if v.dtype == np.float32
+            else jnp.asarray(v) for k, v in batch.items()}
+
+
+def _tbatch(cfg, batch):
+    return {k: torch.from_numpy(v).to(cfg.torch_dtype)
+            if v.dtype == np.float32 else torch.from_numpy(v)
+            for k, v in batch.items()}
+
+
+def _frames(batch, convert):
+    return convert(batch["frames"]) if "frames" in batch else None
 
 
 def _agree(got, want, dtype):
@@ -97,20 +136,30 @@ def test_config_registry_and_aliases_equal_the_jax_registry():
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_params_from_numpy_carries_every_leaf_exactly(pair, dtype):
-    jc, jp, tc, tp = pair("qwen3_14b", dtype)
+def test_params_from_numpy_carries_every_leaf_exactly(pair, arch, dtype):
+    jc, jp, tc, tp = pair(arch, dtype)
     tree = jax.tree.map(np.asarray, jp)
-    for name in ("embed", "unembed", "final_norm"):
-        got = getattr(tp, name)
-        assert got.dtype == tc.torch_dtype
-        np.testing.assert_array_equal(got.float().numpy(),
-                                      tree[name].astype(np.float32))
-    for name, leaf in tree["blocks"].items():
-        for layer, blk in enumerate(tp.blocks):
+    assert api.param_specs(tc).keys() == tree.keys()
+    n = 0
+    for path, shape, params, stacked in P.leaves(tp):
+        want = tree
+        for key in path:
+            want = want[key]
+        assert want.shape == shape, path
+        for i, got in enumerate(params):
+            assert got.dtype == tc.torch_dtype
             np.testing.assert_array_equal(
-                getattr(blk, name).float().numpy(),
-                leaf[layer].astype(np.float32))
+                got.float().numpy(),
+                (want[i] if stacked else want).astype(np.float32))
+        n += 1
+    assert n == len(jax.tree.leaves(tree))
+    back = params_tree(tc, tp)
+    for (kp, a), b in zip(jax.tree_util.tree_flatten_with_path(back)[0],
+                          jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      b.astype(np.float32), err_msg=str(kp))
     bits = tensor_from_numpy(tree["embed"])
     assert bits.dtype == tc.torch_dtype
 
@@ -148,11 +197,16 @@ def test_init_params_uses_the_jax_scales():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_train_matches_jax(pair, arch, dtype):
     jc, jp, tc, tp = pair(arch, dtype)
-    toks = _tokens(jc)
-    want, jaux = japi.forward_train(jc, jp, {"tokens": jnp.asarray(toks)})
-    got, aux = api.forward_train(tc, tp, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == want.shape and got.dtype == tc.torch_dtype
-    assert aux == float(jaux) == 0.0
+    batch = _batch(jc)
+    want, jaux = japi.forward_train(jc, jp, _jbatch(jc, batch))
+    got, aux = api.forward_train(tc, tp, _tbatch(tc, batch))
+    assert got.shape == want.shape
+    assert str(got.dtype).removeprefix("torch.") == want.dtype.name
+    if tc.n_experts:        # the load-balancing loss, averaged over layers
+        assert float(aux) == pytest.approx(float(jaux),
+                                           rel=TOL[dtype] / 10)
+    else:
+        assert aux == float(jaux) == 0.0
     _agree(got.float().numpy()[..., :jc.vocab],
            np.asarray(want, np.float32)[..., :jc.vocab], dtype)
 
@@ -176,34 +230,72 @@ def test_forward_train_with_window_and_softcaps_matches_jax():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_step_matches_jax(pair, arch, dtype):
     jc, jp, tc, tp = pair(arch, dtype)
-    toks = _tokens(jc, 1)
-    want = j_prefill_step(jc)(jp, {"tokens": jnp.asarray(toks)})
-    got = make_prefill_step(tc)(tp, {"tokens": torch.from_numpy(toks)})
+    batch = _batch(jc, 1)
+    want = j_prefill_step(jc)(jp, _jbatch(jc, batch))
+    got = make_prefill_step(tc)(tp, _tbatch(tc, batch))
     assert got.shape == (B, tc.padded_vocab)
     _agree(got.float().numpy()[:, :jc.vocab],
            np.asarray(want, np.float32)[:, :jc.vocab], dtype)
 
 
+def _router_margins(monkeypatch):
+    """Record the smallest top-k router margin (in logits) of each call of
+    the port's MoE FFN."""
+    from repro_torch.models import transformer
+    real, seen = transformer.moe_ffn, []
+
+    def moe_ffn(x, router_w, *w, top_k, capacity_factor):
+        top = (x.float() @ router_w.float()).topk(top_k + 1, dim=-1).values
+        seen.append(float((top[:, top_k - 1] - top[:, top_k]).min()))
+        return real(x, router_w, *w, top_k=top_k,
+                    capacity_factor=capacity_factor)
+    monkeypatch.setattr(transformer, "moe_ffn", moe_ffn)
+    return seen
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_step_by_step_matches_jax(pair, arch, dtype):
+def test_decode_step_by_step_matches_jax(pair, arch, dtype, monkeypatch):
+    """MoE routing is compared first: a step where some token's top-k
+    router margin lies within the dtype's limit (in logits) may route
+    another expert in the two frameworks (the JAX package compiles its
+    bf16 decode with excess precision), and one rerouted token's FFN
+    output differs entirely; such a step's logits, and its cache entry,
+    are held to being finite only."""
     jc, jp, tc, tp = pair(arch, dtype)
-    toks = _tokens(jc, 2)
-    jstate = japi.init_decode_state(jc, jp, B, MAX)
-    state = api.init_decode_state(tc, tp, B, MAX)
-    assert state["k"].shape == tuple(jstate["k"].shape)
-    jdec, dec = j_decode_step(jc), make_decode_step(tc)
+    margins = _router_margins(monkeypatch)
+    batch = _batch(jc, 2)
+    toks = batch["tokens"]
+    jstate = japi.init_decode_state(
+        jc, jp, B, MAX, frames=_frames(batch, lambda f: jnp.asarray(
+            f).astype(jc.jdtype)))
+    state = api.init_decode_state(
+        tc, tp, B, MAX, frames=_frames(batch, lambda f: torch.from_numpy(
+            f).to(tc.torch_dtype)))
+    assert {k: v.shape for k, v in state.items()} == \
+        {k: tuple(v.shape) for k, v in jstate.items()}
+    jdec, dec = jax.jit(j_decode_step(jc)), make_decode_step(tc)
+    sure = np.ones(MAX, bool)
     for t in range(S):
         want, jstate = jdec(jp, {"tokens": jnp.asarray(toks[:, t:t + 1])},
                             jstate, t)
+        del margins[:]
         got, state = dec(tp, {"tokens": torch.from_numpy(toks[:, t:t + 1])},
                          state, t)
-        _agree(got.float().numpy()[:, :jc.vocab],
-               np.asarray(want, np.float32)[:, :jc.vocab], dtype)
-    # the cache was written in place and holds the JAX cache's values
-    np.testing.assert_allclose(state["k"].float().numpy(),
-                               np.asarray(jstate["k"], np.float32),
-                               atol=TOL[dtype] * 10, rtol=TOL[dtype])
+        got = got.float().numpy()[:, :jc.vocab]
+        sure[t] = min(margins, default=np.inf) > TOL[dtype]
+        if sure[t]:
+            _agree(got, np.asarray(want, np.float32)[:, :jc.vocab], dtype)
+        else:
+            assert np.isfinite(got).all()
+    assert sure[:S].sum() >= S - 2
+    # the state holds the JAX state's values (a cache written in place)
+    for name, want in jstate.items():
+        got, want = state[name].float().numpy(), np.asarray(want, np.float32)
+        if name in ("k", "v") and tc.n_experts:      # (L, B, H, Smax, hd)
+            got, want = got[:, :, :, sure], want[:, :, :, sure]
+        np.testing.assert_allclose(got, want, atol=TOL[dtype] * 10,
+                                   rtol=TOL[dtype], err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -237,9 +329,14 @@ def test_gemma2_decode_with_window_and_softcap_matches_jax(dtype):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_own_prefill(pair, arch):
     jc, jp, tc, tp = pair(arch, "float32")
-    toks = torch.from_numpy(_tokens(tc, 3))
-    ref, _ = api.forward_train(tc, tp, {"tokens": toks})
-    state = api.init_decode_state(tc, tp, B, MAX)
+    if tc.n_experts:
+        tc = tc.scaled(capacity_factor=tc.n_experts / tc.top_k)
+    batch = _tbatch(tc, _batch(tc, 3))
+    batch.pop("patch_embeds", None)          # patches enter at prefill only
+    batch.pop("patch_positions", None)
+    toks = batch["tokens"]
+    ref, _ = api.forward_train(tc, tp, batch)
+    state = api.init_decode_state(tc, tp, B, MAX, frames=batch.get("frames"))
     errs = []
     for t in range(S):
         d, state = api.forward_decode(tc, tp, {"tokens": toks[:, t:t + 1]},
@@ -249,31 +346,31 @@ def test_decode_matches_own_prefill(pair, arch):
 
 
 def test_unported_families_and_decode_cases_raise():
-    for arch in ("grok1_314b", "rwkv6_7b", "zamba2_1p2b", "whisper_small",
-                 "llava_next_34b", "llama4_scout_17b_a16e"):
-        cfg = tconfigs.get_config(arch, smoke=True)
+    """Every family runs; what still raises is decode of more than one new
+    token a step (ROADMAP.md, queue 1) and a position past the cache."""
+    for arch in ARCHS:
+        cfg = tconfigs.get_config(arch, smoke=True).scaled(dtype="float32")
+        params = api.init_params(cfg, 0, device="cpu")
+        state = api.init_decode_state(cfg, params, 1, 8)
+        assert api.decode_state_specs(cfg, 1, 8).keys() == state.keys()
+        logits, state = api.forward_decode(
+            cfg, params, {"tokens": torch.ones(1, 1, dtype=torch.int32)},
+            state, 0)
+        assert logits.shape == (1, 1, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.init_params(cfg, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.decode_state_specs(cfg, 1, 8)
-    # gemma2 (window and softcap) decodes: the reference's case of
-    # ROADMAP.md F3 gives finite logits of shape (1, 1, vocab)
-    g = tconfigs.get_config("gemma2_27b", smoke=True).scaled(dtype="float32")
-    gp = api.init_params(g, 0, device="cpu")
-    state = api.init_decode_state(g, gp, 1, 8)
-    logits, _ = api.forward_decode(
-        g, gp, {"tokens": torch.ones(1, 1, dtype=torch.int32)}, state, 0)
-    assert logits.shape == (1, 1, g.padded_vocab)
-    assert bool(torch.isfinite(logits).all())
-    q = tconfigs.get_config("qwen3_14b", smoke=True).scaled(dtype="float32")
-    qp = api.init_params(q, 0, device="cpu")
-    state = api.init_decode_state(q, qp, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.forward_decode(q, qp, {"tokens": torch.ones(1, 2, dtype=torch.int32)},
-                           state, 0)
-    with pytest.raises(ValueError, match="outside a cache"):
-        api.forward_decode(q, qp, {"tokens": torch.ones(1, 1, dtype=torch.int32)},
-                           state, 8)
+            api.forward_decode(
+                cfg, params, {"tokens": torch.ones(1, 2, dtype=torch.int32)},
+                state, 1)
+        if cfg.family != "ssm":              # rwkv keeps no positions
+            with pytest.raises(ValueError, match="outside a cache"):
+                api.forward_decode(
+                    cfg, params,
+                    {"tokens": torch.ones(1, 1, dtype=torch.int32)}, state,
+                    8)
+    with pytest.raises(ValueError, match="family"):
+        api.init_params(tconfigs.get_config("qwen3_14b", smoke=True)
+                        .scaled(family="mlp"), 0, device="cpu")
 
 
 def test_shapes_equal_the_jax_shapes():

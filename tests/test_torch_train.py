@@ -195,6 +195,63 @@ def test_loss_and_every_gradient_match_jax_in_float32(pair, loss_chunk,
                                    rtol=1e-4, atol=1e-6, err_msg=name)
 
 
+FAMILY_ARCHS = ["llama4_scout_17b_a16e", "zamba2_1p2b", "rwkv6_7b",
+                "whisper_small"]
+
+
+def _family_batch(cfg, seed):
+    batch = _batch(cfg, seed)
+    if cfg.family == "audio":
+        batch["frames"] = np.random.default_rng(seed + 1).standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _grad_tree(tc, grads):
+    """The port's gradients by parameter name → the JAX package's tree."""
+    holder = api.empty_params(tc, "cpu")
+    with torch.no_grad():
+        for name, p in holder.named_parameters():
+            p.copy_(grads[name])
+    return params_to_numpy(tc, holder)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_loss_and_every_gradient_match_jax_in_float32(pair, arch):
+    """One train step's loss and gradients for the MoE (with its aux
+    loss), hybrid, RWKV and audio families: the loss and the aux loss
+    within rtol 1e-5, each gradient leaf within rtol 1e-4 and 1e-5 of its
+    max |grad| (the attention gradient's bound above): the chunked scans'
+    exp(±W) factors (|W| past 30 in a SMOKE zamba2 chunk) carry the sum
+    order's float32 noise to elements far below a leaf's largest, which an
+    absolute 1e-6 does not cover (zamba2's embedding: 3.2e-6 on elements
+    of 0.1 with max |grad| 1.09).  S = 32 runs whisper's decoder past its
+    32 SMOKE frames."""
+    jc, jp, tc, tree = pair(arch, "float32")
+    batch = _family_batch(tc, 1)
+    (jloss, jaux), jg = jax.value_and_grad(
+        lambda p: jts.loss_fn(jc, p, _jbatch(batch), jts.TrainConfig()),
+        has_aux=True)(jp)
+    model = _model(tc, tree)
+    loss, metrics = loss_fn(tc, model, _tbatch(batch), TrainConfig())
+    leaves = dict(model.named_parameters())
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(
+        leaves.values()))))
+    loss = loss.detach()
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+    aux = float(torch.as_tensor(metrics["aux"]).detach())
+    assert aux == pytest.approx(float(jaux["aux"]), rel=1e-5)
+    assert (float(jaux["aux"]) > 0) == bool(tc.n_experts)
+    got = _grad_tree(tc, grads)
+    want = jax.tree.map(np.asarray, jg)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for (path, g), w in zip(jax.tree_util.tree_flatten_with_path(got)[0],
+                            jax.tree.leaves(want)):
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-5 * np.abs(w).max(),
+                                   err_msg=str(path))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_matches_jax_in_bfloat16(pair, arch):
     jc, jp, tc, tree = pair(arch, "bfloat16")
@@ -290,6 +347,52 @@ def test_remat_recomputes_each_block_and_keeps_the_gradients(monkeypatch):
         calls.clear()
         _, grads[remat] = _port_grads(tc.scaled(remat=remat), model, batch)
         assert len(calls) == tc.n_layers * (2 if remat else 1)
+    for name, g in grads[True].items():
+        torch.testing.assert_close(g, grads[False][name], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch,recomputed", [
+    ("whisper_small", ("flash",)),        # encoder and decoder blocks
+    ("zamba2_1p2b", ("scan",)),           # mamba layers; not the shared block
+    ("rwkv6_7b", ("scan",)),              # every block
+    ("llama4_scout_17b_a16e", ("flash",)),
+])
+def test_family_remat_recomputes_where_the_jax_package_checkpoints(
+        monkeypatch, arch, recomputed):
+    """With ``cfg.remat`` the backward recomputes exactly the blocks the
+    JAX package wraps in ``jax.checkpoint`` (whisper's encoder and decoder
+    blocks, zamba2's mamba layers but not its shared attention block,
+    every RWKV block, every transformer block), and the gradients are the
+    ones without remat, bit for bit."""
+    from repro_torch.models import rwkv, ssm
+    _, tc = _cfgs(arch, "float32")
+    counts = {"flash": 0, "scan": 0}
+    real_flash, real_scan = layers.flash_attention, rwkv.chunked_linear_scan
+
+    def flash(*a, **kw):
+        counts["flash"] += 1
+        return real_flash(*a, **kw)
+
+    def scan(*a, **kw):
+        counts["scan"] += 1
+        return real_scan(*a, **kw)
+
+    monkeypatch.setattr(layers, "flash_attention", flash)
+    monkeypatch.setattr(rwkv, "chunked_linear_scan", scan)
+    monkeypatch.setattr(ssm, "chunked_linear_scan", scan)
+    model = api.init_params(tc, 3, "cpu").requires_grad_(True)
+    batch = _family_batch(tc, 4)
+    seen, grads = {}, {}
+    for remat in (True, False):
+        counts.update(flash=0, scan=0)
+        _, grads[remat] = _port_grads(tc.scaled(remat=remat), model, batch)
+        seen[remat] = dict(counts)
+    for kind in ("flash", "scan"):
+        factor = 2 if kind in recomputed else 1
+        assert seen[True][kind] == factor * seen[False][kind], (kind, seen)
+    if arch == "zamba2_1p2b":          # the shared block runs once a pass
+        assert seen[True]["flash"] == seen[False]["flash"] == \
+            ssm.n_shared_applications(tc)
     for name, g in grads[True].items():
         torch.testing.assert_close(g, grads[False][name], rtol=0, atol=0)
 
