@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, tuning, in-memory lookup, LLM serving
-and training paths on one NVIDIA card.
+"""Drive the PyTorch port's serving, tuning, in-memory lookup, LLM serving,
+training and multi-device paths on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--draws 230000000]
                           [--tune-draws 21000000]
@@ -149,6 +149,26 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 12:
    ``launch.serve`` loop at the JAX launcher's defaults (8 requests, batch
    4, 32 steps).  Exact flash and decode launches per family, no plain
    attention; each family's peak memory.
+16. The multi-device slice on the one card, after phase 15 with its
+   models freed: (a) qwen3-14b's decode at full width (40/8 heads of
+   128, bf16), B = 8, a 32,768-token cache held as 4 contiguous sequence
+   shards, each shard's partial from the decode kernel and the four
+   combined by ``combine_partials``, at lengths 32,768, 32,751, 9,000
+   (two shards empty) and 1: within 2e-2 of max |plain| of the unsharded
+   kernel and of the plain version, each shard's partial within 2e-2 of
+   its plain version, and three controls that must fail that bound (the
+   combine without its max-correction, a live shard's partial zeroed, a
+   shard's partial without its last 64 keys); an empty shard's partial
+   m = -1e30, l = 0, exactly 4 launches a length and no plain decode;
+   one shard's kernel time and the combine's, L2-cold (CUDA events);
+   (b) a 1-rank NCCL group (``file://`` rendezvous):
+   ``flash_decode_sharded`` at the same lengths against the unsharded
+   kernel (2e-2 of its max |o|), and ``compressed_psum``
+   over qwen3-14b's tree at full width and 2 layers for 30 steps of one
+   random gradient: the int8 error of each leaf within scale/127 and the
+   error-feedback mean within 0.02 relative of the gradient (the bounds of
+   tests/test_substrates.py).  Its decode launches add to the decode
+   row of the kernels line.
 13. The sharded fleet on the card, after phase 9: the tuning phase's keys
    with 1 KiB records (the record size of the JAX package's fleet
    scenario, benchmarks/serve_bench.py:383) as 4 key-range shards, each
@@ -194,6 +214,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -366,6 +387,14 @@ FAMILY_ECHO = (2, 128)           # the prompt through prefill and decode
 # upcast): random-weight RWKV6 amplifies bf16 rounding over its 32 layers
 # (PERF.md §6), so bf16 cannot hold its chunked scan to its recurrence
 ECHO_F32_FAMILIES = ("ssm",)
+DIST_SHARDS = 4                  # phase 16's sequence shards
+DIST_B, DIST_S = 8, 32768        # phase 16's decode batch and cache
+DIST_LENGTHS = (DIST_S, DIST_S - 17, 9000, 1)   # 9,000: two shards empty
+DIST_TOL = 2e-2                  # bf16, the decode checks' bound, of max |plain|
+DIST_DROP = 64                   # keys a control drops from a shard's end
+DIST_LAYERS = 2                  # the compressed tree's depth
+DIST_STEPS = 30                  # error-feedback steps (tests/test_substrates.py)
+DIST_EF_TOL = 0.02               # its bound on the mean's relative error
 
 
 def log(msg: str) -> None:
@@ -2403,7 +2432,8 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
         f"(full width; the run's time limit, for phase 15)")
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    params = api.init_params(cfg, args.seed, device)
+    params = api.init_params(
+        cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
@@ -2763,7 +2793,8 @@ def train_phase(args, device, card: str) -> int:
         torch.cuda.reset_peak_memory_stats(device)
         AK.reset_launches()             # the training path starts here
         try:
-            res = TL.run(cfg, targs, device)
+            res = TL.run(cfg, targs, device,
+                         init=torch.Generator(device=device).manual_seed(0))
         finally:
             (TL.save_checkpoint, TL.restore_checkpoint,
              TL.TrainingSupervisor, AO.ref.attention_ref) = patched
@@ -3007,7 +3038,8 @@ def serve_family(arch: str, layers, args, device, card: str) -> dict:
     rng = np.random.default_rng(args.seed + 15)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    params = api.init_params(cfg, args.seed, device)
+    params = api.init_params(
+        cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
@@ -3238,6 +3270,284 @@ def family_phase(args, device, card: str) -> dict:
     return total
 
 
+@contextlib.contextmanager
+def plain_decode_forbidden(what: str):
+    """The plain decode version raises while the block runs (the path's
+    own calls); it is restored for the comparisons after."""
+    from repro_torch.kernels.decode_attention import ops as DO
+
+    def plain_on_card(*a, **kw):
+        raise AssertionError(f"the plain decode attention ran on {what}")
+
+    saved = DO.ref.decode_attention_ref
+    DO.ref.decode_attention_ref = plain_on_card
+    try:
+        yield
+    finally:
+        DO.ref.decode_attention_ref = saved
+
+
+def decode_plain(q, k, v, lengths):
+    """The plain decode version on the card, in the (B, H, ...) layout →
+    the partial triple."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    o, m, l = decode_attention_ref(
+        q.reshape(B * Hkv, Hq // Hkv, D), k.reshape(B * Hkv, S, D),
+        v.reshape(B * Hkv, S, D), lengths.repeat_interleave(Hkv))
+    return o.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over max |want|: over a long cache |o| is far
+    below 1 (about sqrt(e/S) for standard-normal inputs), so an absolute
+    bound would pass a wrong result."""
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def unchecked_combine(o, m, l):
+    """Control: the combine with its max-correction e^(m − M) dropped."""
+    return (o * l[..., None]).sum(0) / l.sum(0).clamp_min(1e-30)[..., None]
+
+
+def sharded_decode_check(q, k, v, shards, device, card: str) -> tuple:
+    """Phase 16 (a): qwen3-14b's decode at B x S held as DIST_SHARDS
+    contiguous sequence shards, each shard's partial from the decode
+    kernel, combined by ``combine_partials``, at DIST_LENGTHS; held
+    against the unsharded kernel and the plain version, relative to max
+    |plain|; three controls that the check must fail (the combine without
+    its max-correction, a live shard's partial zeroed, a shard's partial
+    missing its last DIST_DROP keys); the shard kernel's and the
+    combine's times → (path launches, largest absolute error of a shard's
+    kernel partial against its plain version, for the kernels line)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.serve import attention as SA
+    B, S, N = DIST_B, DIST_S, DIST_SHARDS
+    Sl = S // N
+    runs = {}
+    with plain_decode_forbidden("the sharded path"):
+        DK.reset_launches()             # the sharded path starts here
+        for L in DIST_LENGTHS:
+            lengths = torch.full((B,), L, dtype=torch.int32, device=device)
+            parts = [DO.decode_attention(q, ck, cv,
+                                         SA.shard_lengths(lengths, i, Sl))
+                     for i, (ck, cv) in enumerate(shards)]
+            o, m, l = (torch.stack(t) for t in zip(*parts))
+            runs[L] = (DO.combine_partials(o, m, l)[0], o, m, l, lengths)
+        torch.cuda.synchronize()
+        launches = DK.launches()        # ... and ends here
+    if launches != N * len(DIST_LENGTHS):
+        raise AssertionError(f"sharded decode: {launches} kernel launches, "
+                             f"not {N} a shard and length")
+    shard_err = shard_abs = 0.0
+    controls = {"no max-correction": 1.0, "a shard zeroed": 1.0,
+                f"{DIST_DROP} keys dropped": 1.0}
+    for L, (got, o, m, l, lengths) in runs.items():
+        whole = DO.decode_attention(q, k, v, lengths)[0]
+        plain = decode_plain(q, k, v, lengths)[0]
+        e_whole, e_plain = rel_err(got, whole), rel_err(got, plain)
+        empty = [i for i in range(N) if i * Sl >= L]
+        live = [i for i in range(N) if i not in empty]
+        for i in range(N):
+            part = SA.shard_lengths(lengths, i, Sl)
+            po, pm, pl = decode_plain(q, *shards[i], part)
+            if i in empty:
+                if not (bool((m[i] == -1e30).all())
+                        and bool((l[i] == 0).all())):
+                    raise AssertionError(f"shard {i} at length {L} is empty"
+                                         f" but weighs in (m, l not "
+                                         f"-1e30, 0)")
+                continue
+            shard_err = max(shard_err, rel_err(o[i], po))
+            shard_abs = max(shard_abs, float((o[i] - po).abs().max()))
+            if L == S and i == 0:       # control: a block of keys missing
+                short = decode_plain(q, *shards[i], part - DIST_DROP)[0]
+                controls[f"{DIST_DROP} keys dropped"] = rel_err(short, po)
+        zeroed = o.clone()
+        zeroed[live[-1]] = 0
+        c_zero = rel_err(DO.combine_partials(zeroed, m, l)[0], plain)
+        controls["a shard zeroed"] = min(controls["a shard zeroed"], c_zero)
+        msg = ""
+        if len(live) > 1:               # one live shard needs no correction
+            c_max = rel_err(unchecked_combine(o, m, l), plain)
+            controls["no max-correction"] = min(
+                controls["no max-correction"], c_max)
+            msg = f", without max-correction {c_max:.3e}"
+        log(f"sharded decode at length {L}: {N} shards of {Sl} "
+            f"(empty {empty}), max |plain| {float(plain.abs().max()):.4f}; "
+            f"relative to it: sharded - unsharded kernel {e_whole:.3e}, "
+            f"sharded - plain {e_plain:.3e} (bound {DIST_TOL}); controls: "
+            f"shard {live[-1]} zeroed {c_zero:.3e}{msg}")
+        if not (e_whole < DIST_TOL and e_plain < DIST_TOL):
+            raise AssertionError(f"sharded decode at length {L} off by "
+                                 f"{max(e_whole, e_plain):.3e} of max "
+                                 f"|plain|")
+    log(f"a shard's kernel partial off its plain version by at most "
+        f"{shard_err:.3e} of its max |plain| (bound {DIST_TOL}; absolute "
+        f"{shard_abs:.3e}); controls "
+        f"at their closest: " + ", ".join(f"{k} {v:.3e}"
+                                          for k, v in controls.items()))
+    if not shard_err < DIST_TOL:
+        raise AssertionError(f"a shard's kernel partial is {shard_err:.3e} "
+                             f"of max |plain| off its plain version")
+    passed = [k for k, v in controls.items() if not v >= DIST_TOL]
+    if passed:
+        raise AssertionError(f"the {DIST_TOL} bound passes wrong results: "
+                             f"{passed}")
+    Hkv, D = k.shape[1], k.shape[3]
+    G = q.shape[1] // Hkv
+    qg = q.reshape(B * Hkv, G, D)
+    ck, cv = (t.reshape(B * Hkv, Sl, D) for t in shards[0])
+    lg = torch.full((B * Hkv,), Sl, dtype=torch.int32, device=device)
+    kg, vg = k.reshape(B * Hkv, S, D), v.reshape(B * Hkv, S, D)
+    lw = torch.full((B * Hkv,), S, dtype=torch.int32, device=device)
+    _, o, m, l, _ = runs[S]
+    cold, warm = queued_numbers({
+        "shard": lambda: DK.decode_attention_cuda(qg, ck, cv, lg),
+        "combine": lambda: DO.combine_partials(o, m, l),
+        "unsharded": lambda: DK.decode_attention_cuda(qg, kg, vg, lw)}, 50)
+    log(f"sharded decode times on {card} (CUDA events, L2 flushed before "
+        f"each call): one shard's kernel ({B} x {Sl} keys) "
+        f"{cold['shard'] * 1e3:.3f} us (back to back "
+        f"{warm['shard'] * 1e3:.3f} us), the combine of {N} partials "
+        f"{cold['combine'] * 1e3:.3f} us ({warm['combine'] * 1e3:.3f} us), "
+        f"{N} shards + combine {(N * cold['shard'] + cold['combine']) * 1e3:.3f}"
+        f" us against the unsharded kernel {cold['unsharded'] * 1e3:.3f} us "
+        f"({warm['unsharded'] * 1e3:.3f} us)")
+    return launches, shard_abs
+
+
+def nccl_check(q, k, v, device, work: str) -> int:
+    """Phase 16 (b): a 1-rank NCCL group (``file://`` rendezvous):
+    ``flash_decode_sharded`` against the unsharded kernel, and
+    ``compressed_psum`` with error feedback over qwen3-14b's tree at full
+    width and DIST_LAYERS layers for DIST_STEPS steps → the path's decode
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.models import api
+    from repro_torch.serve.attention import flash_decode_sharded
+    from repro_torch.train import compression as TC
+    log("phase 16 (b): a 1-rank NCCL group exercises the NCCL calls "
+        "(all_reduce MAX and SUM on the card), not communication")
+    for var, val in (("NCCL_SOCKET_IFNAME", "lo"), ("NCCL_IB_DISABLE", "1")):
+        os.environ.setdefault(var, val)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "rendezvous"), rank=0, world_size=1)
+    try:
+        decode = flash_decode_sharded(None)
+        outs = {}
+        with plain_decode_forbidden("the NCCL path"):
+            DK.reset_launches()         # the NCCL decode path starts here
+            for L in DIST_LENGTHS:
+                lengths = torch.full((DIST_B,), L, dtype=torch.int32,
+                                     device=device)
+                outs[L] = (decode(q, k, v, lengths), lengths)
+            torch.cuda.synchronize()
+            launches = DK.launches()    # ... and ends here
+        if launches != len(DIST_LENGTHS):
+            raise AssertionError(f"NCCL decode: {launches} launches")
+        errs = [rel_err(got, DO.decode_attention(q, k, v, lengths)[0])
+                for got, lengths in outs.values()]
+        log(f"NCCL flash_decode_sharded (1 rank) at lengths {DIST_LENGTHS}:"
+            f" |result - unsharded kernel| at most {max(errs):.3e} of max "
+            f"|kernel| (bound {DIST_TOL})")
+        if not max(errs) < DIST_TOL:
+            raise AssertionError(f"NCCL decode off by {max(errs):.3e}")
+
+        cfg = get_config(LLM_ARCH).scaled(n_layers=DIST_LAYERS)
+        log(f"reduced: the compressed tree is {cfg.name} at {DIST_LAYERS} "
+            f"of its 40 layers (full width; one card's memory)")
+        gen = torch.Generator(device=device).manual_seed(16)
+        grads = {}
+        for path, shape in leaf_shapes(api.param_specs(cfg)):
+            grads[path] = torch.randn(shape, generator=gen, device=device)
+        n = sum(g.numel() for g in grads.values())
+        err = TC.init_error_state(grads)
+        acc = {p: torch.zeros_like(g) for p, g in grads.items()}
+        worst_q = 0.0
+        t0 = time.perf_counter()
+        for step in range(DIST_STEPS):
+            mean, err = TC.compressed_psum(grads, err)
+            for p in acc:
+                acc[p] += mean[p]
+            if step == 0:               # err is the int8 error of g itself
+                for p, g in grads.items():
+                    bound = float(g.abs().max()) / 127.0
+                    worst_q = max(worst_q, float(err[p].abs().max()) / bound)
+            del mean
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not worst_q <= 1.0:
+            raise AssertionError(f"int8 error {worst_q:.4f} of scale/127")
+        rel = {p: float((acc[p] / DIST_STEPS - g).norm() / g.norm())
+               for p, g in grads.items()}
+        worst = max(rel, key=rel.get)
+        log(f"compressed_psum over {len(grads)} leaves ({n} elements) x "
+            f"{DIST_STEPS} steps: {wall:.3f} s; the int8 error of a leaf at "
+            f"most {worst_q:.4f} of its scale/127; error feedback: the mean's"
+            f" relative error at most {rel[worst]:.3e} ({worst}; bound "
+            f"{DIST_EF_TOL})")
+        if not rel[worst] < DIST_EF_TOL:
+            raise AssertionError(f"error feedback: {worst} off by "
+                                 f"{rel[worst]:.3e}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def leaf_shapes(tree, prefix=""):
+    """(path, shape) of every TensorSpec leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaf_shapes(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tuple(v.shape)
+
+
+def dist_phase(args, device, card: str) -> tuple:
+    """Phase 16: the multi-device slice on one card, the plain decode
+    version forbidden on its paths → (decode launches of the paths,
+    largest absolute error of a shard's kernel partial)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(LLM_ARCH)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S, N = DIST_B, DIST_S, DIST_SHARDS
+    gen = torch.Generator(device=device).manual_seed(args.seed + 16)
+    bf = torch.bfloat16
+    q = torch.randn((B, Hq, D), generator=gen, device=device).to(bf)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device=device).to(bf)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device=device).to(bf)
+    Sl = S // N
+    # each shard its own contiguous tensor, as a rank holds it
+    shards = [(k[:, :, i * Sl:(i + 1) * Sl].contiguous(),
+               v[:, :, i * Sl:(i + 1) * Sl].contiguous()) for i in range(N)]
+    log(f"phase 16: sequence-sharded decode at {LLM_ARCH}'s width ({Hq}/"
+        f"{Hkv} heads of {D}, bf16), B={B}, cache {S} in {N} shards")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        a_launches, shard_err = sharded_decode_check(q, k, v, shards,
+                                                     device, card)
+        b_launches = nccl_check(q, k, v, device, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"multi-device path: {a_launches + b_launches} decode launches "
+        f"({a_launches} sharded, {b_launches} through NCCL); no plain "
+        f"decode ran")
+    return a_launches + b_launches, shard_err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3294,6 +3604,12 @@ def main(argv=None) -> int:
     families = phase(15, family_phase, args, device, card)
     for entry in attention:
         entry["launches"] += families[entry["name"]]
+    gc.collect()                        # phase 15's models, freed first
+    torch.cuda.empty_cache()
+    decode = next(e for e in attention if e["name"] == "decode_attention")
+    launches, shard_err = phase(16, dist_phase, args, device, card)
+    decode["launches"] += launches
+    decode["max_abs_err"] = max(decode["max_abs_err"], shard_err)
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s (limit "
         f"1200 s, the kernels' build included)")
     print(json.dumps({"kernels": [fused, scores, *lookups, *attention]}))

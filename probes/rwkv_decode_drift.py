@@ -35,11 +35,14 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels._cuda import resolve_device
     from repro_torch.models import api
     from repro_torch.serve import make_decode_step, make_prefill_step
     cfg = get_config("rwkv6-7b").scaled(n_layers=args.layers,
                                         dtype=args.dtype)
-    params = api.init_params(cfg, 0, args.device)
+    device = resolve_device(args.device)
+    params = api.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
     rng = np.random.default_rng(15)
     toks = torch.from_numpy(rng.integers(
         1, cfg.vocab, (2, args.tokens)).astype(np.int32)).to(params.device)

@@ -25,6 +25,7 @@ from .keyset import KeyPositions, POS_DTYPE
 
 STEP_PIECE_BYTES = 16   # 8 B partition key + 8 B partition position
 BAND_NODE_BYTES = 40    # x1, y1, x2, y2, delta  (5 × 8 B)
+LAYER_KINDS = ("step", "band")
 
 
 @dataclasses.dataclass(frozen=True)

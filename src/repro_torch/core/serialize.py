@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import zlib
 
 import numpy as np
@@ -195,6 +196,15 @@ def parse_meta(pread) -> IndexFileMeta:
     if magic != MAGIC:
         raise ValueError(f"bad index file: magic {int(magic):#x}")
     return IndexFileMeta.from_json(pread(int(hlen), 16).decode())
+
+
+def read_meta(fd: int) -> IndexFileMeta:
+    """Header from an already-open raw fd — compat seam for callers that
+    own their descriptor (tests, tooling); path-based callers should use
+    :func:`read_meta_path`, which reads through the StorageBackend."""
+    # airlint: allow[pread-seam] -- raw-fd compat seam; the caller owns the
+    # descriptor and path-based internal callers use read_meta_path instead
+    return parse_meta(lambda n, off: os.pread(fd, n, off))
 
 
 def open_file_backend(path: str):

@@ -56,13 +56,23 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, m, l
 
 
+def combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, all_max,
+            all_sum):
+    """The exact max-correction of partial triples, with the reductions
+    over the shards passed in (``all_max``, ``all_sum``: a leading axis
+    on one device, or all-reduces across ranks): M = max_i m_i;
+    L = Σ_i l_i·e^(m_i − M); O = Σ_i o_i·l_i·e^(m_i − M) / L."""
+    M = all_max(m)
+    w = l * torch.exp(m - M)
+    L = all_sum(w)
+    O = all_sum(o * w[..., None]) / L.clamp_min(1e-30)[..., None]
+    return O, M, L
+
+
 def combine_partials_ref(os: torch.Tensor, ms: torch.Tensor,
                          ls: torch.Tensor):
     """Combine per-shard (o, m, l) triples stacked on a leading shard
-    axis: M = max_i m_i; L = Σ_i l_i·e^(m_i − M);
-    O = Σ_i o_i·l_i·e^(m_i − M) / L."""
-    M = ms.amax(dim=0)
-    w = ls * torch.exp(ms - M[None])
-    L = w.sum(dim=0)
-    O = (os * w[..., None]).sum(dim=0) / L.clamp_min(1e-30)[..., None]
-    return O, M, L
+    axis (:func:`combine` over that axis)."""
+    O, M, L = combine(os, ms, ls, lambda t: t.amax(0, keepdim=True),
+                      lambda t: t.sum(0, keepdim=True))
+    return O[0], M[0], L[0]

@@ -201,3 +201,21 @@ def fused_descent_with_backend(layers, queries, *, backend: str = "cuda",
         raise ValueError(f"unknown backend {backend!r}")
     lo, hi = ref.fused_descent_ref(layers, q)
     return lo, hi, "numpy"
+
+
+def fused_descent(layers, queries, *, backend: str = "cuda", packed=None,
+                  device=None):
+    """Walk ``queries`` through a resident prefix in one fused dispatch →
+    ``(lo, hi)`` float64 arrays of shape (L, Q), as
+    :func:`fused_descent_with_backend` without the backend that served.
+
+    ``packed`` lets long-lived callers reuse one :func:`pack_prefix`
+    result across batches; it is moved onto ``device`` (the card unless
+    named).  ``backend="numpy"`` is the bit-exact float64 walk.
+    """
+    module = None
+    if backend == "cuda" and packed is not None:
+        module = FusedDescent(packed, device=device)
+    lo, hi, _ = fused_descent_with_backend(layers, queries, backend=backend,
+                                           module=module, device=device)
+    return lo, hi

@@ -58,9 +58,11 @@ class TrainRun:
     checkpoints: dict
 
 
-def run(cfg, args, device=None) -> TrainRun:
+def run(cfg, args, device=None, *, init=0) -> TrainRun:
     """Train ``cfg`` as ``args`` (the flags of :func:`parse_args`) say, on
-    ``device`` (the card unless named), from ``init_params`` of seed 0."""
+    ``device`` (the card unless named), from ``init_params`` of ``init``:
+    seed 0 (the JAX package's draw) unless a seed or a
+    ``torch.Generator`` is given."""
     device = resolve_device(device)
     os.makedirs(args.workdir, exist_ok=True)
     print(f"[train] {cfg.name} smoke={args.smoke} device={device}")
@@ -76,7 +78,7 @@ def run(cfg, args, device=None) -> TrainRun:
     print(f"[data] sample index: {store.tune.design.describe()}")
 
     tcfg = TrainConfig(microbatches=args.microbatches)
-    params = api.init_params(cfg, 0, device)
+    params = api.init_params(cfg, init, device)
     params.requires_grad_(True)
     live = {"params": params,
             "opt": adamw_init(dict(params.named_parameters()),

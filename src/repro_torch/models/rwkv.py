@@ -74,7 +74,7 @@ def _init_rule(name: str, tree_shape: tuple):
         return lambda shape: torch.full(shape, 0.5)
     if name == "bonus_u":
         return lambda shape: torch.full(shape, 0.1)
-    return P.fan_in_scale(tree_shape)
+    return P.fan_in(tree_shape, "div")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,

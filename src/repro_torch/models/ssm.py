@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels._cuda import resolve_device
 
 from . import params as P
+from . import prng
 from . import transformer
 from .config import ModelConfig
 from .layers import rms_norm, rope_tables
@@ -74,6 +75,18 @@ def layout(cfg: ModelConfig) -> dict:
             "shared": shared_block_shapes(cfg)}
 
 
+def mamba_block_specs(cfg: ModelConfig, L: int) -> dict:
+    """The JAX package's tree of ``L`` stacked Mamba2 blocks: each leaf a
+    :class:`TensorSpec` with the layer axis first."""
+    return P.specs({"blocks": P.Stack(L, mamba_block_shapes(cfg))},
+                   cfg.torch_dtype)["blocks"]
+
+
+def shared_block_specs(cfg: ModelConfig) -> dict:
+    """The JAX package's tree of the one shared attention block."""
+    return P.specs(shared_block_shapes(cfg), cfg.torch_dtype)
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     return P.specs(layout(cfg), cfg.torch_dtype)
 
@@ -89,13 +102,13 @@ def _init_rule(name: str, tree_shape: tuple):
     if name in ("ln", "ln1", "ln2", "final_norm", "gn_scale", "conv_b"):
         return torch.zeros
     if name == "A_log":
-        return lambda shape: torch.log(
-            torch.linspace(0.5, 4.0, shape[-1])).expand(shape)
+        return lambda shape: prng.xla_log(
+            prng.linspace(0.5, 4.0, shape[-1])).expand(shape)
     if name == "dt_bias":
         return lambda shape: torch.full(shape, -2.0)
     if name == "D":
         return torch.ones
-    return P.fan_in_scale(tree_shape)
+    return P.fan_in(tree_shape, "div")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,

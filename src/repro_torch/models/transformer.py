@@ -110,16 +110,16 @@ def _init_rule(name: str, tree_shape: tuple):
     applies ``1 + scale``)."""
     if name in ("final_norm", "ln1", "ln2"):
         return torch.zeros
-    return P.fan_in_scale(tree_shape) if len(tree_shape) >= 2 else 0.02
+    return (P.fan_in(tree_shape, "mul") if len(tree_shape) >= 2
+            else P.times(0.02))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
                 device=None) -> Transformer:
-    """Random parameters drawn on ``device`` (the card unless named) from
-    ``generator`` (or a seed), at the JAX package's scales
-    (:func:`_init_rule`).  The numbers differ from ``jax.random``'s;
-    tests carry the JAX package's parameters across with
-    ``params_from_numpy``."""
+    """Random parameters drawn on ``device`` (the card unless named) at
+    the JAX package's scales (:func:`_init_rule`): an ``int`` seed draws
+    ``jax.random``'s numbers for ``PRNGKey(seed)``, a
+    ``torch.Generator`` its own (:func:`params.init_`)."""
     return P.init_(Transformer(cfg, device), generator, _init_rule)
 
 

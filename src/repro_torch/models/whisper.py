@@ -73,8 +73,8 @@ def _init_rule(name: str, tree_shape: tuple):
     if name.startswith(("ln", "final", "enc_final")):
         return torch.zeros
     if name.startswith("pos"):
-        return 0.02
-    return P.fan_in_scale(tree_shape)
+        return P.times(0.02)
+    return P.fan_in(tree_shape, "div")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,

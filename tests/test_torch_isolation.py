@@ -88,7 +88,19 @@ def test_every_port_module_imports_with_jax_blocked():
                  "repro_torch.train.train_step",
                  "repro_torch.train.checkpoint",
                  "repro_torch.train.fault_tolerance",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.models.prng",
+                 "repro_torch.analysis", "repro_torch.analysis.core",
+                 "repro_torch.analysis.__main__",
+                 "repro_torch.analysis.rules",
+                 "repro_torch.analysis.rules.kernel_fallback",
+                 "repro_torch.analysis.rules.lock_discipline",
+                 "repro_torch.analysis.rules.pread_seam",
+                 "repro_torch.analysis.rules.shim_discipline",
+                 "repro_torch.analysis.rules.spec_roundtrip",
+                 "repro_torch.analysis.rules.typed_error_flow",
+                 "repro_torch.dist", "repro_torch.dist.sharding",
+                 "repro_torch.launch.mesh", "repro_torch.train.compression",
+                 "repro_torch.serve.attention"):
         assert name in names
     # each module is imported first, into a process that holds no other
     # module of the port, so an import cycle cannot hide behind the order

@@ -714,7 +714,8 @@ def test_a_training_step_on_the_card_equals_the_cpus(card, dtype,
     from repro_torch.train import TrainConfig, adamw_init, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("qwen3-14b", smoke=True).scaled(dtype=dtype)
-    cpu = api.init_params(cfg, 4, "cpu")
+    cpu = api.init_params(
+        cfg, torch.Generator().manual_seed(4), "cpu")
     gpu = Transformer(cfg, card)
     load_params_(cfg, gpu, params_tree(cfg, cpu))
     rng = np.random.default_rng(6)
@@ -793,7 +794,8 @@ def test_a_family_forward_and_decode_on_the_card_equal_the_cpus(card, arch,
     from repro_torch.models.convert import load_params_, params_tree
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch, smoke=True).scaled(dtype=dtype)
-    cpu = api.init_params(cfg, 5, "cpu")
+    cpu = api.init_params(
+        cfg, torch.Generator().manual_seed(5), "cpu")
     gpu = api.empty_params(cfg, card)
     load_params_(cfg, gpu, params_tree(cfg, cpu))
     rng = np.random.default_rng(8)
@@ -837,3 +839,80 @@ def test_a_family_forward_and_decode_on_the_card_equal_the_cpus(card, arch,
     uses_attention = cfg.family != "ssm"
     assert (got[2][0] > 0) == uses_attention
     assert (got[2][1] > 0) == uses_attention
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sequence_sharded_decode_on_one_card(card, dtype):
+    """Four contiguous sequence shards, each through the decode kernel,
+    combined by ``combine_partials``, against the unsharded kernel and
+    the plain version: lengths S, S − 17, 300 (two shards empty) and 1
+    (three empty); an empty shard's partial is m = −1e30, l = 0.  The
+    error is taken relative to max |plain| (over a long cache |o| is far
+    below 1): float32 at the decode limit (3e-5), bfloat16 at 2e-2."""
+    from repro_torch.serve import attention as SA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Hq, Hkv, S, D, N = 2, 8, 2, 1024, 128, 4
+    rng = np.random.default_rng(31)
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    q, k, v = randn(B, Hq, D), randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+    qc, kc, vc = (t.to(card, dt) for t in (q, k, v))
+    Sl = S // N
+    shards = [(kc[:, :, i * Sl:(i + 1) * Sl].contiguous(),
+               vc[:, :, i * Sl:(i + 1) * Sl].contiguous()) for i in range(N)]
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    for L in (S, S - 17, 300, 1):
+        lengths = torch.full((B,), L, dtype=torch.int32)
+        lc = lengths.to(card)
+        before = DK.launches()
+        parts = [da.decode_attention(qc, ck, cv, SA.shard_lengths(lc, i, Sl))
+                 for i, (ck, cv) in enumerate(shards)]
+        torch.cuda.synchronize()
+        assert DK.launches() == before + N
+        o, m, l = (torch.stack(t) for t in zip(*parts))
+        got = da.combine_partials(o, m, l)[0].cpu()
+        whole = da.decode_attention(qc, kc, vc, lc)[0].cpu()
+        plain = da.decode_attention(qc.cpu().float(), kc.cpu().float(),
+                                    vc.cpu().float(), lengths)[0]
+        top = float(plain.abs().max())
+        assert float((got - whole).abs().max()) / top < tol, L
+        assert float((got - plain).abs().max()) / top < tol, L
+        for i in range(N):
+            if i * Sl >= L:
+                assert bool((m[i] == -1e30).all()) and bool((l[i] == 0).all())
+
+
+def test_error_state_of_specs_lands_on_the_card(card):
+    """``init_error_state`` of spec leaves, no device named, gives zeros
+    on the card, where ``compressed_psum`` under NCCL needs them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train import compression as TC
+    specs = api.param_specs(get_config("qwen3-14b", smoke=True))
+    leaves = []
+
+    def walk(t):
+        for v in t.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    err = TC.init_error_state(specs)
+    walk(err)
+    assert leaves and all(t.device.type == "cuda" and not bool(t.any())
+                          for t in leaves)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "zamba2-1.2b",
+                                  "whisper-small"])
+def test_the_seeded_draw_on_the_card_equals_the_cpus(card, arch):
+    """``init_params(cfg, 0)`` (the JAX package's draw) gives the same
+    bits on the card as on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config(arch, smoke=True)
+    gpu = api.init_params(cfg, 0, card)
+    cpu = api.init_params(cfg, 0, "cpu")
+    for (name, a), (_, b) in zip(gpu.named_parameters(),
+                                 cpu.named_parameters()):
+        assert torch.equal(a.cpu(), b), name

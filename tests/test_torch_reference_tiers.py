@@ -1,8 +1,11 @@
 """Files, specs and public names the JAX package hands the port: its named
 storage tiers (``object_store``, ``hbm``, ``vmem``, ``ici``, ``dcn``) open,
 serve and tune in the port with the reference's constants; the card's
-measured memory is a tier of its own name, ``h100_hbm``; and the port's
-``core``, ``serve`` and ``api`` export the reference's public names.
+measured memory is a tier of its own name, ``h100_hbm``; every package
+of the reference with an ``__all__`` exists in the port and exports the
+reference's public names; and the reference's other public names the
+port carries (``read_meta``, ``LAYER_KINDS``, the ssm block specs, the
+two-tuple ``fused_descent``) behave as the reference's.
 
 Inputs: the repo's ``gmm`` key generator (numpy seeds), 2,000 and 20,000
 keys with 16-byte records, 700 queries drawn with numpy seed 5 (the
@@ -11,20 +14,19 @@ counters (the serving walk is float64 numpy in both packages); tuned
 costs within 1e-12 relative (the tuner is bit-identical with numpy
 ranking)."""
 import dataclasses
+import importlib
+import os
 
 import numpy as np
 import pytest
 
 import repro.api as RA
 import repro.core as RC
-import repro.fleet as RF
-import repro.serve as RS
 from repro.core import KeyPositions as RefKP
 from repro.serve.index_service import demo_serving_design as ref_demo
 
 import repro_torch.api as PA
 import repro_torch.core as PC
-import repro_torch.fleet as PF
 import repro_torch.serve as PS
 from repro_torch.core import KeyPositions
 from repro_torch.serve import IndexService
@@ -103,12 +105,29 @@ def test_hbm_means_the_reference_tier_in_both_packages(tmp_path):
             RC.profile_to_dict(RC.PROFILES[name])
 
 
-#: names the reference exports that the port leaves out by decision (the
-#: legacy shims of ROADMAP.md queue 1)
-NOT_PORTED = {"core": {"load_index"},
-              "serve": set(),
-              "api": set(),
-              "fleet": set()}
+def _packages_with_all(root: str) -> set:
+    """Dotted names (below the top package) of the packages under
+    ``root`` whose ``__init__.py`` defines ``__all__``."""
+    out = set()
+    for here, _, files in os.walk(root):
+        if "__init__.py" not in files or here == root:
+            continue
+        with open(os.path.join(here, "__init__.py"), encoding="utf-8") as fh:
+            if "__all__" in fh.read():
+                out.add(os.path.relpath(here, root).replace(os.sep, "."))
+    return out
+
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src")
+#: every package of the reference with an ``__all__``; the port must
+#: have each, with an ``__all__`` (the F5 contract)
+REF_PACKAGES = sorted(_packages_with_all(os.path.join(SRC, "repro")))
+
+#: names the reference exports that the port leaves out by decision: the
+#: legacy shims of ROADMAP.md queue 1 (``load_index`` is the deprecated
+#: ``Index.open(path, data=data).design``)
+NOT_PORTED = {"core": {"load_index"}}
 #: names only the port exports
 PORT_ONLY = {"core": {"DEFAULT_CACHE_ENTRIES", "LayerCache", "LayerMeta",
                       "SCORE_BACKENDS", "check_disjoint", "convert",
@@ -117,18 +136,113 @@ PORT_ONLY = {"core": {"DEFAULT_CACHE_ENTRIES", "LayerCache", "LayerMeta",
                       "seed_layer_cache"},
              "serve": {"demo_serving_design"},
              "api": {"SERVE_BACKENDS"},
-             "fleet": set()}
+             # the kernel module, its plain versions and the device helper
+             "kernels.fused_descent": {"FusedDescent", "fused_descent_ref",
+                                       "fused_descent_torch",
+                                       "resolve_device"},
+             "kernels.candidate_score": {"BACKENDS", "affine_scores",
+                                         "affine_scores_cuda",
+                                         "affine_scores_torch",
+                                         "timed_affine_scores"}}
 
 
-@pytest.mark.parametrize("name,ref,port", [("core", RC, PC),
-                                           ("serve", RS, PS),
-                                           ("api", RA, PA),
-                                           ("fleet", RF, PF)])
-def test_public_names_equal_the_references(name, ref, port):
+def test_every_reference_package_with_names_is_compared():
+    assert set(REF_PACKAGES) >= {"core", "serve", "api", "fleet",
+                                 "kernels.fused_descent",
+                                 "kernels.candidate_score", "analysis",
+                                 "analysis.rules", "dist"}
+    assert set(NOT_PORTED) | set(PORT_ONLY) <= set(REF_PACKAGES)
+
+
+@pytest.mark.parametrize("name", REF_PACKAGES)
+def test_public_names_equal_the_references(name):
+    ref = importlib.import_module(f"repro.{name}")
+    port = importlib.import_module(f"repro_torch.{name}")
     assert set(port.__all__) == \
-        (set(ref.__all__) - NOT_PORTED[name]) | PORT_ONLY[name]
-    for sym in set(ref.__all__) - NOT_PORTED[name]:
+        (set(ref.__all__) - NOT_PORTED.get(name, set())) \
+        | PORT_ONLY.get(name, set())
+    for sym in set(ref.__all__) - NOT_PORTED.get(name, set()):
         assert getattr(port, sym) is not None
+
+
+def test_read_meta_reads_a_raw_fd_as_the_reference(tmp_path):
+    path, _ = _served_file(tmp_path, "host_dram")
+    fd = os.open(path, os.O_RDONLY)  # airlint: allow[pread-seam] -- test
+    try:
+        got, want = PC.serialize.read_meta(fd), RC.serialize.read_meta(fd)
+    finally:
+        os.close(fd)
+    assert got.to_json() == want.to_json()
+    assert got == PC.serialize.read_meta_path(path)
+
+
+def test_layer_kinds_and_the_ssm_block_specs_equal_the_references():
+    from repro import configs as jconfigs
+    from repro.core import nodes as rnodes
+    from repro.models import ssm as rssm
+    from repro_torch import configs as tconfigs
+    from repro_torch.core import nodes as pnodes
+    from repro_torch.models import ssm as pssm
+    assert pnodes.LAYER_KINDS == rnodes.LAYER_KINDS
+    for smoke in (True, False):
+        jc = jconfigs.get_config("zamba2-1.2b", smoke=smoke)
+        tc = tconfigs.get_config("zamba2-1.2b", smoke=smoke)
+
+        def same(t, j):
+            assert t.keys() == j.keys()
+            for k in j:
+                assert tuple(t[k].shape) == tuple(j[k].shape), k
+                assert str(t[k].dtype).split(".")[-1] == str(j[k].dtype), k
+        for L in (1, 3, jc.n_layers):
+            same(pssm.mamba_block_specs(tc, L), rssm.mamba_block_specs(jc, L))
+        same(pssm.shared_block_specs(tc), rssm.shared_block_specs(jc))
+
+
+def _resident_prefix(rng, L=3, P=640):
+    """A top-down parsed prefix of ``L`` layers of about ``P`` entries,
+    step and band layers in turn, keys below 2^31 (the device guard)."""
+    layers = []
+    for l in range(L):
+        n = int(rng.integers(P - 127, P + 1))
+        keys = np.concatenate([[1], np.sort(rng.choice(
+            np.arange(2, 2**31 - 2, 9973), n - 1, replace=False))])
+        if l % 2:
+            y1 = np.sort(rng.integers(0, 2**24, n)).astype(np.float64)
+            x_next = np.append(keys[1:], 2**31 - 1).astype(np.float64)
+            y_next = np.append(y1[1:], 2.0**24)
+            layers.append({"kind": "band", "x1": keys.astype(np.uint64),
+                           "y1": y1, "m": (y_next - y1) / (x_next - keys),
+                           "delta": rng.uniform(1, 600, n)})
+        else:
+            pos = np.sort(rng.integers(0, 2**30, n + 1))
+            layers.append({"kind": "step", "keys": keys.astype(np.uint64),
+                           "pos_lo": pos[:-1], "pos_hi": pos[1:]})
+    return layers
+
+
+def test_fused_descent_two_tuple_entry_equals_the_references():
+    from repro.kernels import fused_descent as rfd
+    from repro_torch.kernels import fused_descent as pfd
+    rng = np.random.default_rng(21)
+    layers = _resident_prefix(rng)
+    q = rng.integers(1, 2**31 - 2, 700).astype(np.uint64)
+    want = rfd.fused_descent(layers, q, backend="numpy")
+    got = pfd.fused_descent(layers, q, backend="numpy")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    # the device path on the CPU (the plain version), packed or not, is
+    # the one fused_descent_with_backend serves, and it equals the JAX
+    # package's device path (interpret mode): step rows exact, band rows
+    # widened by the same f32 slack
+    lo, hi, used = pfd.fused_descent_with_backend(layers, q, device="cpu")
+    assert used == "cuda"
+    jlo, jhi = rfd.fused_descent(layers, q, backend="jnp")
+    np.testing.assert_array_equal(lo, jlo)
+    np.testing.assert_array_equal(hi, jhi)
+    for kw in ({}, {"packed": pfd.pack_prefix(layers)}):
+        glo, ghi = pfd.fused_descent(layers, q, device="cpu", **kw)
+        np.testing.assert_array_equal(glo, lo)
+        np.testing.assert_array_equal(ghi, hi)
 
 
 def test_index_service_exposes_its_storage_backend(tmp_path):
