@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, tuning, in-memory lookup, LLM serving,
-training and multi-device paths on one NVIDIA card.
+training, multi-device and dry-run paths on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--draws 230000000]
                           [--tune-draws 21000000]
 
 Phases (none catches its own failure; any failure exits non-zero), run in
-the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 12:
+the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 16, 17, 12:
 
 1. Card: name and power limit from ``nvidia-smi``.
 2. Build: compile all seven kernels from ``src/repro_torch/csrc`` through
@@ -91,7 +91,14 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 12:
    D in 32/64/128) and with window and softcap together at 1,000 tokens;
    decode with gemma2's heads (32/16 of 128), window 4,096 and softcap 50
    at caches 1/4095/4097/32768, f32 and bf16, and its bf16 time at
-   B = 8 x 32768 against the bound over the 4,096 live keys.
+   B = 8 x 32768 against the bound over the 4,096 live keys; several new
+   tokens a step, folded into group x Sq query rows: qwen3-14b's heads
+   (40/8) at Sq = 4 (20 rows, two m-tiles: phases 11 and 15's rows),
+   glm4's (32/2) at Sq = 4 (64 rows, a whole row tile), deepseek's (56/8) at Sq = 10
+   (70 rows, two tiles) and gemma2's (32/16, window 4,096, softcap 50) at
+   Sq = 8, caches 1/4095/32768, f32 and bf16, and the bf16 kernel timed
+   at qwen3-14b's heads (B = 4, cache 4,096) for Sq = 1, 4 and 8 beside
+   its bound and SDPA with a length mask.
    Limits: f32 at the JAX tests' own (flash 2e-5; decode 3e-5 on o, 1e-5
    on m, l relative 1e-5), with TF32 off for the plain versions; bf16
    2e-2.
@@ -105,8 +112,13 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 12:
    the port's ``launch.serve.run`` with 8 requests, batch 4, and the steps
    every request needs; one 4 x 512 prompt through prefill and, token by
    token, decode, whose last logits must agree within 5e-2 of max |logit|
-   (top-1 equal where prefill's top-2 margin is larger); a profiled
-   decode step and prefill (device busy share).  Exactly one flash
+   (top-1 equal where prefill's top-2 margin is larger), then 4 new tokens
+   in one decode step, whose last token's logits must agree in the same
+   way with a prefill of all 516 (the new tokens see each other with no
+   mask, as in the JAX package, so from the second layer on the earlier
+   ones' K/V differ from prefill's; over a 512-token cache that moves the
+   last logits well inside the limit); a profiled decode step and prefill
+   (device busy share).  Exactly one flash
    launch a layer and prefill call and one decode launch a layer and
    decode step, and
    no plain attention runs; the path's peak memory; then the page table of
@@ -145,7 +157,9 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 12:
    capacity factor E / k, where nothing is dropped, its routing flips
    between the two paths counted and the check decided with decode routed
    as prefill routed; rwkv6 decided in float32 (the same weights upcast),
-   its bf16 error printed; llava text-only.  zamba2 also runs the port's
+   its bf16 error printed; llava text-only; llama4 (routed as prefill
+   routes) and whisper then decode 4 new tokens in one step, checked as
+   phase 11 checks them against a prefill of 132 tokens.  zamba2 also runs the port's
    ``launch.serve`` loop at the JAX launcher's defaults (8 requests, batch
    4, 32 steps).  Exact flash and decode launches per family, no plain
    attention; each family's peak memory.
@@ -169,6 +183,18 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 12:
    error-feedback mean within 0.02 relative of the gradient (the bounds of
    tests/test_substrates.py).  Its decode launches add to the decode
    row of the kernels line.
+17. The meta-device dry run (``repro_torch.launch.dryrun``), after phase
+   16: phase 14's training step (qwen3-14b, 14 layers, 4 x 512) and phase
+   11's prefill (8 layers, 1 x 4096) and decode (4 over a 512 cache)
+   traced on ``meta`` on a 1x1 mesh; one such training step and one such
+   prefill run on the card after ``reset_peak_memory_stats``: the
+   predicted ``argument_bytes`` must be within 20% of the bytes the step's
+   arguments made live, and ``temp_bytes`` within 20% of the rise of
+   ``max_memory_allocated`` above them; the counted training dot FLOPs
+   must reach the model FLOPs (6 N tokens + attention's) and their ratio
+   is printed; and the qwen3-14b row of ``python -m
+   repro_torch.launch.dryrun --mesh both``, run on the host's CPU with
+   the card hidden, must give 6 ok and 2 skipped records, each printed.
 13. The sharded fleet on the card, after phase 9: the tuning phase's keys
    with 1 KiB records (the record size of the JAX package's fleet
    scenario, benchmarks/serve_bench.py:383) as 4 key-range shards, each
@@ -387,6 +413,24 @@ FAMILY_ECHO = (2, 128)           # the prompt through prefill and decode
 # upcast): random-weight RWKV6 amplifies bf16 rounding over its 32 layers
 # (PERF.md §6), so bf16 cannot hold its chunked scan to its recurrence
 ECHO_F32_FAMILIES = ("ssm",)
+# several new tokens a step: (arch, new tokens) of phase 10's kernel
+# checks -- qwen3-14b's 5 query heads a kv head x MULTI_NEW = 20 rows (two
+# m-tiles, the rows phases 11 and 15 give the kernel), glm4's 16 x 4 = 64
+# (a whole row tile), deepseek's 7 x 10 = 70 (two tiles), gemma2's 2 x 8
+# with its window and softcap -- the new tokens of phases 11 and 15's
+# check, the families phase 15 checks it on, and the Sq phase 10 times at
+# qwen3's heads
+MULTI_CASES = (("qwen3-14b", 4), ("glm4-9b", 4), ("deepseek-coder-33b", 10),
+               ("gemma2-27b", 8))
+MULTI_S = (1, 4095, 32768)
+MULTI_NEW = 4
+MULTI_FAMILIES = ("llama4-scout-17b-a16e", "whisper-small")
+MULTI_TIMED = (1, 4, 8)
+MULTI_TIMED_B, MULTI_TIMED_S = 4, 4096
+# phase 17: the dry run's prediction of the card's bytes, at most this far
+# off (relative); the qwen3-14b row of the dry run at both meshes
+DRY_TOL = 0.20
+DRY_ARCH = "qwen3_14b"
 DIST_SHARDS = 4                  # phase 16's sequence shards
 DIST_B, DIST_S = 8, 32768        # phase 16's decode batch and cache
 DIST_LENGTHS = (DIST_S, DIST_S - 17, 9000, 1)   # 9,000: two shards empty
@@ -2107,6 +2151,7 @@ def check_attention_kernels(device, seed: int, card: str) -> dict:
                 n_dec += 1
                 del q, k, v, got, want
     n_dec += check_windowed_decode(device, rng, randn, check_decode, card)
+    n_dec += check_multi_token_decode(device, rng, randn, check_decode, card)
     n_fl = 0
     edges = [dict(B=2, Hq=4, Hkv=2, Sq=Sq, Skv=Sq + extra, D=D)
              for Sq in FLASH_EDGE_SQ for extra in FLASH_EDGE_EXTRA
@@ -2185,6 +2230,53 @@ def check_windowed_decode(device, rng, randn, check_decode,
     gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
     decode_numbers(8, WINDOW_CACHES[-1], [WINDOW_CACHES[-1]] * 8, cfg, card,
                    device, gen, window=win, softcap=cap)
+    return n
+
+
+def check_multi_token_decode(device, rng, randn, check_decode,
+                             card: str) -> int:
+    """Several new tokens a step, folded into group·Sq query rows as
+    ``decode_attention`` folds them: the kernel at MULTI_CASES' heads
+    (20 rows over two m-tiles, 64 rows, 70 rows over two row tiles,
+    gemma2's window and softcap at 16 rows), f32 and bf16, caches MULTI_S
+    with a row of length 0 and one at S; then the bf16 kernel timed at
+    qwen3-14b's heads (B = 4, cache 4,096) for Sq in MULTI_TIMED → the
+    number of cases."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_ref)
+    n = 0
+    for arch, sq in MULTI_CASES:
+        cfg = get_config(arch)
+        Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        opts = dict(window=cfg.sliding_window, softcap=cfg.attn_softcap)
+        R, rows = DECODE_B * Hkv, Hq // Hkv * sq
+        for S in MULTI_S:
+            for dt in (torch.float32, torch.bfloat16):
+                # q (B, Hq, Sq, D) folded: row (b, kv head), query g·Sq + s
+                q = randn((DECODE_B, Hq, sq, D), dt).reshape(R, rows, D)
+                if dt == torch.bfloat16 and opts["softcap"]:
+                    q = q * 4                # scores where the cap bends
+                k, v = randn((R, S, D), dt), randn((R, S, D), dt)
+                lens = rng.integers(1, S + 1, DECODE_B)
+                lens[0], lens[-1] = 0, S
+                lt = torch.from_numpy(np.repeat(lens, Hkv).astype(
+                    np.int32)).to(device)
+                got = decode_attention_cuda(q, k, v, lt, **opts)
+                want = decode_attention_ref(q, k, v, lt, **opts)
+                torch.cuda.synchronize()
+                check_decode(got, want, str(dt).split(".")[-1],
+                             f"{arch} Sq={sq} ({rows} rows) S={S} {opts}")
+                n += 1
+                del q, k, v, got, want
+    cfg = get_config(LLM_ARCH)
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+    for sq in MULTI_TIMED:
+        decode_numbers(MULTI_TIMED_B, MULTI_TIMED_S,
+                       [MULTI_TIMED_S] * MULTI_TIMED_B, cfg, card, device,
+                       gen, sq=sq)
     return n
 
 
@@ -2331,20 +2423,22 @@ def attention_numbers(name: str, kern, plain, library, nbytes: int,
 
 def decode_numbers(B: int, S: int, lens, cfg, card: str, device,
                    gen, window: int | None = None,
-                   softcap: float | None = None) -> dict:
-    """The decode kernel on a (B, S) bf16 cache at ``cfg``'s heads, the
-    rows live up to ``lens`` (their last ``window`` keys, when given), the
+                   softcap: float | None = None, sq: int = 1) -> dict:
+    """The decode kernel on a (B, S) bf16 cache at ``cfg``'s heads for
+    ``sq`` new tokens a row (folded into group·sq query rows), the rows
+    live up to ``lens`` (their last ``window`` keys, when given), the
     scores capped by ``softcap`` when given.  The SDPA yardstick takes
-    the same keys through a mask; it has no softcap."""
+    the same keys through a length mask shared by the new tokens; it has
+    no softcap."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_ref)
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    G, R = Hq // Hkv, B * Hkv
+    G, R = Hq // Hkv * sq, B * Hkv       # query rows a (batch, kv head)
     bf = torch.bfloat16
-    q = torch.randn((B, Hq, D), generator=gen, device=device).to(bf)
+    q = torch.randn((B, Hq, sq, D), generator=gen, device=device).to(bf)
     k = torch.randn((B, Hkv, S, D), generator=gen, device=device).to(bf)
     v = torch.randn((B, Hkv, S, D), generator=gen, device=device).to(bf)
     lens = np.asarray(lens, dtype=np.int32)
@@ -2366,9 +2460,10 @@ def decode_numbers(B: int, S: int, lens, cfg, card: str, device,
         lambda: decode_attention_cuda(qg, kg, vg, lg, **opts),
         lambda: decode_attention_ref(qg, kg, vg, lg, **opts),
         lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
+            q, k, v, attn_mask=mask, enable_gqa=True),
         nbytes, ops, 50, card,
-        f"B={B}, S={S} (lengths {int(lens.min())}..{int(lens.max())}"
+        f"B={B}" + ("" if sq == 1 else f" x {sq} new tokens")
+        + f", S={S} (lengths {int(lens.min())}..{int(lens.max())}"
         + ("" if window is None else f", window {window}")
         + ("" if softcap is None else f", softcap {softcap}")
         + f"), Hq={Hq}, Hkv={Hkv}, D={D}, bf16")
@@ -2400,6 +2495,30 @@ def flash_numbers(B: int, S: int, cfg, card: str, device, gen) -> dict:
                                                enable_gqa=True),
         nbytes, ops, 10, card, f"B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, "
         f"bf16, causal")
+
+
+def multi_token_agree(got, want, vocab: int, what: str) -> str:
+    """The last new token's logits of a decode step of several tokens
+    against a prefill of the prompt and them, at its position: within
+    ECHO_TOL of max |logit|, top-1 equal where prefill's top-2 margin is
+    larger → the line to log (raises where they disagree)."""
+    import torch
+    got, want = got.float()[:, :vocab], want.float()[:, :vocab]
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) / scale > ECHO_TOL
+    same = got.argmax(-1) == want.argmax(-1)
+    how = (f"max |logit| err {err:.4e} of max |logit| {scale:.4f} (limit "
+           f"{ECHO_TOL}); top-1 equal on {int(same.sum())} of "
+           f"{got.shape[0]} rows ({int(sure.sum())} with a top-2 margin "
+           f"above the limit)")
+    if not (err <= ECHO_TOL and bool(same[sure].all())
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{what}: the last new token's logits of a "
+                             f"{MULTI_NEW}-token decode step disagree with "
+                             f"prefill's: {how}")
+    return how
 
 
 def llm_phase(args, device, card: str, errs: dict) -> list:
@@ -2510,7 +2629,7 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
         want = prefill(params, {"tokens": toks}).float()[:, :cfg.vocab]
         prefill_calls += 1
         state = api.init_decode_state(cfg, params, ECHO_BATCH,
-                                      ECHO_LEN + SHARE_STEPS)
+                                      ECHO_LEN + MULTI_NEW + SHARE_STEPS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(ECHO_LEN):
@@ -2520,8 +2639,18 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
         t_echo = time.perf_counter() - t0
         decode_steps += ECHO_LEN
 
+        # MULTI_NEW new tokens in one step against prefill of them all
+        new = toks.new_tensor(rng.integers(1, cfg.vocab,
+                                           (ECHO_BATCH, MULTI_NEW)))
+        multi, state = decode(params, {"tokens": new}, state, ECHO_LEN)
+        want_multi = prefill(params, {"tokens": torch.cat([toks, new], 1)})
+        decode_steps, prefill_calls = decode_steps + 1, prefill_calls + 1
+        multi_how = multi_token_agree(multi, want_multi, cfg.vocab,
+                                      f"{cfg.name}")
+
         # where a decode step's and a prefill's time goes
-        nxt = iter(range(ECHO_LEN, ECHO_LEN + SHARE_STEPS))
+        nxt = iter(range(ECHO_LEN + MULTI_NEW,
+                         ECHO_LEN + MULTI_NEW + SHARE_STEPS))
         one = toks[:, -1:]
         dec_share = device_share(lambda: decode(params, {"tokens": one},
                                                 state, next(nxt)),
@@ -2557,6 +2686,10 @@ def llm_phase(args, device, card: str, errs: dict) -> list:
     if not (err <= ECHO_TOL and bool(same[sure].all())
             and bool(torch.isfinite(got).all())):
         raise AssertionError("decode's last logits disagree with prefill's")
+    log(f"{cfg.name} decode of {MULTI_NEW} new tokens in one step after the "
+        f"{ECHO_BATCH} x {ECHO_LEN} prompt vs prefill of "
+        f"{ECHO_LEN + MULTI_NEW} tokens, at the last new token on {card}: "
+        f"{multi_how}")
     log_share(f"decode step (B={ECHO_BATCH}, cache {ECHO_LEN})", dec_share)
     log_share(f"prefill (B={PREFILLS[0][0]}, S={PREFILLS[0][1]})",
               pre_share)
@@ -2716,6 +2849,16 @@ def leaf_digests(tree) -> dict:
     return {name: d for (name, _), d in zip(leaves, digests)}
 
 
+def train_model_flops(cfg, B: int, S: int) -> tuple:
+    """Model FLOPs of a training step on a (B, S) batch: 6 N for the
+    matmul parameters (the embedding is a gather) per token, and
+    attention's live causal pairs x 4D forward, three times over for the
+    backward → (FLOPs, N)."""
+    n_mm = cfg.param_count() - cfg.vocab * cfg.d_model - cfg.d_model
+    pairs = B * cfg.n_heads * S * (S + 1) // 2
+    return 6 * n_mm * B * S + 3 * 4 * cfg.hd * pairs * cfg.n_layers, n_mm
+
+
 def train_phase(args, device, card: str) -> int:
     """Phase 14: a token store written, tuned and read back; the attention
     gradient at the training shape; then the port's ``launch.train.run``
@@ -2826,12 +2969,7 @@ def train_phase(args, device, card: str) -> int:
 
     walls = np.asarray(res.step_walls_s)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    # model FLOPs a step: 6 N for the matmul parameters (the embedding is a
-    # gather) per token, and attention's live causal pairs x 4D forward,
-    # three times over for the backward
-    n_mm = cfg.param_count() - cfg.vocab * cfg.d_model - cfg.d_model
-    pairs = TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    flops = 6 * n_mm * tokens + 3 * 4 * cfg.hd * pairs * cfg.n_layers
+    flops, n_mm = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     med = float(np.median(walls))
     ck = res.checkpoints
     log(f"training {cfg.name} at full width (d_model {cfg.d_model}, "
@@ -3104,7 +3242,8 @@ def serve_family(arch: str, layers, args, device, card: str) -> dict:
     decode_steps, inits = 0, 0
 
     def run_decode(routes=None, c=dcfg, p=params, step=decode):
-        state = api.init_decode_state(c, p, B, n, frames=echo.get("frames"))
+        state = api.init_decode_state(c, p, B, n + MULTI_NEW,
+                                      frames=echo.get("frames"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(n):
@@ -3112,7 +3251,7 @@ def serve_family(arch: str, layers, args, device, card: str) -> dict:
                 routes.step = t
             got, state = step(p, {"tokens": toks[:, t:t + 1]}, state, t)
         torch.cuda.synchronize()
-        return got.float()[:, :cfg.vocab], time.perf_counter() - t0
+        return got.float()[:, :cfg.vocab], time.perf_counter() - t0, state
 
     def agree(got, want):
         scale = float(want.abs().max())
@@ -3129,7 +3268,7 @@ def serve_family(arch: str, layers, args, device, card: str) -> dict:
 
     if not cfg.n_experts:
         want = make_prefill_step(dcfg)(params, echo).float()[:, :cfg.vocab]
-        got, t_echo = run_decode()
+        got, t_echo, state = run_decode()
         prefill_calls, decode_steps, inits = prefill_calls + 1, n, 1
         ok, how = agree(got, want)
         log(f"{cfg.name} decode vs prefill on one {B} x {n} prompt on "
@@ -3147,7 +3286,8 @@ def serve_family(arch: str, layers, args, device, card: str) -> dict:
                     a.copy_(b)
             want32 = make_prefill_step(c32)(p32, echo).float()[
                 :, :cfg.vocab]
-            got32, t32 = run_decode(c=c32, p=p32, step=make_decode_step(c32))
+            got32, t32, _ = run_decode(c=c32, p=p32,
+                                       step=make_decode_step(c32))
             prefill_calls, decode_steps, inits = (prefill_calls + 1,
                                                   decode_steps + n, inits + 1)
             ok, how = agree(got32, want32)
@@ -3164,7 +3304,7 @@ def serve_family(arch: str, layers, args, device, card: str) -> dict:
             pre = [(e.reshape(B, n, -1), m.reshape(B, n))
                    for e, m in routes.seen]
             routes.seen = []
-            free, t_echo = run_decode()          # decode routes itself
+            free, t_echo, _ = run_decode()       # decode routes itself
             flips, flip_margin, margin_min = 0, 0.0, float("inf")
             for i, (e, _) in enumerate(routes.seen):
                 t, layer = divmod(i, L)
@@ -3175,7 +3315,7 @@ def serve_family(arch: str, layers, args, device, card: str) -> dict:
                     flip_margin = max(flip_margin, float(pm[bad].max()))
                 margin_min = min(margin_min, float(pm.min()))
             routes.pin = lambda layer: pre[layer][0][:, routes.step]
-            pinned, t_pin = run_decode(routes)   # decode routed as prefill
+            pinned, t_pin, state = run_decode(routes)   # routed as prefill
         prefill_calls, decode_steps, inits = prefill_calls + 1, 2 * n, 2
         ok_free, how_free = agree(free, want)
         ok, how = agree(pinned, want)
@@ -3195,6 +3335,27 @@ def serve_family(arch: str, layers, args, device, card: str) -> dict:
     if not ok:
         raise AssertionError(f"{cfg.name}: decode's last logits disagree "
                              f"with prefill's")
+    if cfg.name in MULTI_FAMILIES:      # MULTI_NEW new tokens in one step
+        new = family_batch(cfg, rng, B, MULTI_NEW, device,
+                           patches=False)["tokens"]
+        full = dict(echo, tokens=torch.cat([toks, new], 1))
+        if cfg.n_experts:               # routed as prefill routes them
+            with MoeRoutes(cfg.n_layers) as routes:
+                want_m = make_prefill_step(dcfg)(params, full)
+                pre_m = [e.reshape(B, n + MULTI_NEW, -1)[:, n:].reshape(
+                    B * MULTI_NEW, -1) for e, _ in routes.seen]
+                routes.pin = lambda layer: pre_m[layer]
+                multi, state = decode(params, {"tokens": new}, state, n)
+        else:
+            want_m = make_prefill_step(dcfg)(params, full)
+            multi, state = decode(params, {"tokens": new}, state, n)
+        prefill_calls, decode_steps = prefill_calls + 1, decode_steps + 1
+        how = multi_token_agree(multi, want_m, cfg.vocab, cfg.name)
+        log(f"{cfg.name} decode of {MULTI_NEW} new tokens in one step after"
+            f" the {B} x {n} prompt vs prefill of {n + MULTI_NEW} tokens, "
+            f"at the last new token on {card}: {how}"
+            + (" (routed as prefill)" if cfg.n_experts else ""))
+    del state
 
     if cfg.family == "hybrid":          # the JAX launcher's default arch
         largs = launcher.parse_args(["--no-smoke"])
@@ -3548,6 +3709,183 @@ def dist_phase(args, device, card: str) -> tuple:
     return a_launches + b_launches, shard_err
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the meta-device dry run against the card
+# ---------------------------------------------------------------------------
+def dry_vs_card(what: str, rec: dict, base: int, before: int, rise: int,
+                card: str) -> None:
+    """Log a dry-run record's bytes beside the card's; fail past DRY_TOL:
+    ``argument_bytes`` against the bytes the step's arguments made live
+    (``before`` less ``base``, what was live before they were made),
+    ``temp_bytes`` against the rise of ``max_memory_allocated`` over
+    ``before``."""
+    arg, temp = rec["memory"]["argument_bytes"], rec["memory"]["temp_bytes"]
+    live = before - base
+    ea, et = abs(arg - live) / live, abs(temp - rise) / rise
+    log(f"dry run vs {card}, {what}: argument_bytes {arg} predicted, "
+        f"{live} B live for the step's arguments ({before} B in all, "
+        f"{base} B before they were made; rel err {ea:.4f}); temp_bytes "
+        f"{temp} predicted, the peak rose {rise} B above them (rel err "
+        f"{et:.4f}); limit {DRY_TOL}")
+    if not (ea <= DRY_TOL and et <= DRY_TOL):
+        raise AssertionError(f"dry run of {what}: predicted bytes more than "
+                             f"{DRY_TOL} off the card's")
+
+
+def dry_record_line(rec: dict) -> str:
+    m, c = rec["memory"], rec["collectives"]
+    return (f"args {m['argument_bytes']} B, temp {m['temp_bytes']} B, out "
+            f"{m['output_bytes']} B a device; dot FLOPs {rec['dot_flops']:.6e}"
+            f", HBM traffic {rec['hbm_traffic_bytes']:.6e} B (unfused "
+            f"{rec['unfused_traffic_bytes']:.6e}); collectives "
+            f"{c['total']:.6e} B in {c['count']} ({', '.join(f'{k} {c[k]:.4e}' for k in c if k not in ('total', 'count') and c[k])}); "
+            f"{rec['replica']['n_ops']} ops and "
+            f"{rec['replica']['kernel_launches']} kernel launches traced "
+            f"in {rec['trace_s']} s")
+
+
+def dryrun_phase(args, device, card: str) -> None:
+    """Phase 17: the dry run (``repro_torch.launch.dryrun``) traces on
+    ``meta``, on a 1x1 mesh, phase 14's training step (qwen3-14b at
+    TRAIN_LAYERS, TRAIN_BATCH x TRAIN_SEQ, launch.train's TrainConfig) and
+    phase 11's prefill (LLM_LAYERS, 1 x 4096) and decode (ECHO_BATCH over
+    a cache of ECHO_LEN); one such training step and one such prefill run
+    on the card after ``reset_peak_memory_stats``, and the predicted
+    argument and temp bytes must be within DRY_TOL of the card's; the
+    counted training dot FLOPs must reach the model FLOPs of
+    :func:`train_model_flops`; then the DRY_ARCH row at both production
+    meshes (the CLI a user runs, on this host's CPU) must give 6 ok and 2
+    skipped records."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import api
+    from repro_torch.models.api import InputShape
+    from repro_torch.serve import make_prefill_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    one = MeshShape((1, 1), ("data", "model"))
+    tcfg = TrainConfig()                # launch.train's, microbatches 1
+    tr_cfg = get_config(LLM_ARCH).scaled(n_layers=TRAIN_LAYERS)
+    sv_cfg = get_config(LLM_ARCH).scaled(n_layers=LLM_LAYERS)
+    pB, pS = PREFILLS[0]
+    cells = {"train": (tr_cfg, InputShape("train", TRAIN_SEQ, TRAIN_BATCH,
+                                          "train")),
+             "prefill": (sv_cfg, InputShape("prefill", pS, pB, "prefill")),
+             "decode": (sv_cfg, InputShape("decode", ECHO_LEN, ECHO_BATCH,
+                                           "decode"))}
+    recs = {}
+    for name, (cfg, shape) in cells.items():
+        recs[name] = dryrun.dry_run(cfg, shape, one,
+                                    tcfg if name == "train" else None)
+        log(f"dry run of {cfg.name} at {cfg.n_layers} layers, {name} "
+            f"{shape.global_batch} x {shape.seq_len}, 1x1 mesh, on meta: "
+            f"{dry_record_line(recs[name])}")
+
+    gen = torch.Generator(device=device).manual_seed(args.seed + 17)
+    rng = np.random.default_rng(args.seed + 17)
+
+    def tokens(cfg, B, S):
+        return torch.from_numpy(rng.integers(1, cfg.vocab, (B, S)).astype(
+            np.int32)).to(device)
+
+    # one training step on the card
+    gc.collect()
+    base = torch.cuda.memory_allocated(device)
+    params = api.init_params(tr_cfg, gen, device)
+    params.requires_grad_()
+    opt = adamw_init(dict(params.named_parameters()), tcfg.optimizer)
+    batch = {"tokens": tokens(tr_cfg, TRAIN_BATCH, TRAIN_SEQ),
+             "labels": tokens(tr_cfg, TRAIN_BATCH, TRAIN_SEQ)}
+    step = make_train_step(tr_cfg, tcfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params, opt, metrics = step(params, opt, batch)     # in place
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rise = torch.cuda.max_memory_allocated(device) - before
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"the measured training step's loss {loss}")
+    log(f"one training step of {tr_cfg.name} at {TRAIN_LAYERS} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} on {card}: wall {wall:.3f} s (a first"
+        f" step), loss {loss:.4f}")
+    dry_vs_card(f"the training step ({TRAIN_LAYERS} layers, {TRAIN_BATCH} "
+                f"x {TRAIN_SEQ})", recs["train"], base, before, rise, card)
+    model, n_mm = train_model_flops(tr_cfg, TRAIN_BATCH, TRAIN_SEQ)
+    counted = recs["train"]["dot_flops"]
+    log(f"dry run's training dot FLOPs {counted:.6e} against the model "
+        f"FLOPs {model:.6e} (6 N tokens, N = {n_mm}, + attention's): ratio "
+        f"{counted / model:.4f} (remat recomputes the forward; the "
+        f"attention backward's products count whole kv blocks)")
+    if counted < model:
+        raise AssertionError("the dry run counts fewer training FLOPs than "
+                             "the model's")
+    del params, opt, batch, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one prefill on the card
+    base = torch.cuda.memory_allocated(device)
+    params = api.init_params(sv_cfg, gen, device)
+    toks = {"tokens": tokens(sv_cfg, pB, pS)}
+    prefill = make_prefill_step(sv_cfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    logits = prefill(params, toks)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(device) - before
+    if not bool(torch.isfinite(logits.float()[:, :sv_cfg.vocab]).all()):
+        raise AssertionError("the measured prefill's logits are not finite")
+    dry_vs_card(f"the prefill ({LLM_LAYERS} layers, {pB} x {pS})",
+                recs["prefill"], base, before, rise, card)
+    del params, toks, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the production row, traced on this host's CPU with the card hidden
+    work = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    try:
+        out = os.path.join(work, "dryrun.jsonl")
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRY_ARCH, "--mesh", "both", "--out", out], cwd=HERE, env=env,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"the dry run's {DRY_ARCH} row failed "
+                                 f"({run.returncode}): "
+                                 f"{(run.stdout + run.stderr)[-3000:]}")
+        with open(out) as f:
+            rows = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    status = sorted(r["status"] for r in rows)
+    for r in rows:
+        if r["status"] == "ok":
+            log(f"dry run {r['arch']} {r['shape']} {r['mesh']} "
+                f"({r['n_devices']} devices): {dry_record_line(r)}")
+        else:
+            log(f"dry run {r['arch']} {r['shape']} {r['mesh']}: "
+                f"{r['status']} ({r.get('reason', r.get('error'))})")
+    log(f"dry run row {DRY_ARCH} --mesh both on this host's CPU: "
+        f"{len(rows)} records ({status.count('ok')} ok, "
+        f"{status.count('skipped')} skipped) in {wall:.1f} s")
+    if status != ["ok"] * 6 + ["skipped"] * 2:
+        raise AssertionError(f"the dry run's {DRY_ARCH} row gave {status}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3610,6 +3948,9 @@ def main(argv=None) -> int:
     launches, shard_err = phase(16, dist_phase, args, device, card)
     decode["launches"] += launches
     decode["max_abs_err"] = max(decode["max_abs_err"], shard_err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(17, dryrun_phase, args, device, card)
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s (limit "
         f"1200 s, the kernels' build included)")
     print(json.dumps({"kernels": [fused, scores, *lookups, *attention]}))

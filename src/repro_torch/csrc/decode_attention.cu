@@ -1,10 +1,12 @@
-// Decode attention for Hopper (sm_90a): one new token per sequence against
-// its KV cache, returning the partial-softmax triple (o, m, l).
+// Decode attention for Hopper (sm_90a): the new tokens of each sequence
+// against its KV cache, returning the partial-softmax triple (o, m, l).
 //
 // Replaces the TPU kernel `decode_attention_pallas` of the JAX package
 // (src/repro/kernels/decode_attention/kernel.py:73, body `_decode_kernel`
 // at :28).  The caller folds GQA into rows as ops.py does there: row r is
-// one (batch, kv head) pair with its `group` query heads, so
+// one (batch, kv head) pair with its `group` query rows (its query heads
+// times the new tokens, with no mask among them, as decode_attention_jnp
+// folds them), so
 //
 //   q (R, group, D)   k, v (R, S, D)   kv_length (R,) int32
 //   o (R, group, D) f32   m, l (R, group) f32
@@ -24,8 +26,11 @@
 // combination of partials.  Masked scores are -1e30, not -inf, and their
 // probabilities 0, so no NaN can arise.
 //
-// Flash-decoding, both kernels: the grid is (n_split, R).  Block (i, r)
-// takes the i-th of n_split equal chunks of the row's live keys (rounded
+// Any number of query rows: a block takes a tile of up to 64 of them (TR),
+// and a third grid dimension walks the tiles when a row has more, each tile
+// reading K and V again.  Flash-decoding, both kernels: the grid is
+// (n_split, R, row tiles).  Block (i, r, t) takes the i-th of n_split
+// equal chunks of the row's live keys (rounded
 // up to the 64-key tile), so every split carries work whatever the length; a
 // split that starts past the row's length writes the empty triple and
 // exits at once.  With n_split > 1 each block writes its partial triple
@@ -42,22 +47,27 @@
 // from eight bank groups); keys past the chunk's end are zero-filled by
 // the copy's source size and never read.  The row's query heads are
 // padded to the 16 rows of mma.sync.m16n8k16 (bf16 -> f32) and held as A
-// fragments in registers, loaded once: no loop over head slots, any group
-// up to 16.  Per slice: S (16 heads x 16 keys) = Q · Kᵀ from ldmatrix'd K
+// fragments in registers, loaded once.  A tile of more than 16 rows is MT
+// (2 or 4) such m-tiles: warp w holds m-tile w % MT and takes every
+// (4 / MT)-th slice of each key tile, so every slice serves every m-tile
+// and K and V are still read once; the slices are then shared across
+// warps, and each stage wait below gains a block barrier.  Per slice:
+// S (16 heads x 16 keys) = Q · Kᵀ from ldmatrix'd K
 // fragments, then scale, the length mask and the online softmax on the
 // accumulators (row max over the four lanes of a row; O rescaled only
 // when some row's max moved); P is re-packed from the S accumulators into
 // the A fragment of O += P · V (V through ldmatrix.trans), so it never
 // goes through shared memory.  Each warp keeps its own m, l and O; the
 // only waits inside the loop are its ring's stage waits (cp.async.wait_group
-// and __syncwarp).  The four warps' partials are merged once, at the end
-// of the block's chunk, through shared memory.  At D = 128 a block holds
+// and __syncwarp, one m-tile).  The warps' partials of each m-tile are
+// merged once, at the end of the block's chunk, through shared memory.  At D = 128 a block holds
 // 96 KB of ring, two blocks an SM, with up to 64 KB of K/V in flight per
 // block (Little's law wants ~25 KB an SM: 3.35 TB/s x ~1 us / 132 SMs).
 //
-// Other type pairs (tests only): the first port's kernel on CUDA cores,
-// kept as it was: tiles widened to float32 in shared memory, one tile of
-// loads in flight in registers, head slots up to 16.
+// Other type pairs (tests only): the first port's kernel on CUDA cores:
+// tiles widened to float32 in shared memory, one tile of loads in flight
+// in registers, TR = 64 head slots (each loaded tile serves every slot,
+// so K and V are read once; slots past the tile's rows are masked).
 //
 // Bound.  Bytes: each row's K and V up to its length, plus q and the
 // outputs; the FLOPs (4 * group * D per key) are far below the tensor
@@ -74,7 +84,7 @@ typedef __nv_bfloat16 bf16;
 
 #define THREADS 128
 #define TK 64
-#define MAXG 16
+#define TR 64                          // query rows a block (a row tile)
 #define NEG_INF (-1e30f)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -117,8 +127,8 @@ template <typename TQ, typename TKV, int D>
 struct DecodeSmem {
     static constexpr int KS = D + 4;                 // padded K row stride
     static constexpr int BYTES =
-        (MAXG * D + TK * KS + TK * D + MAXG * TK + 4 * (MAXG / 2)
-         + 2 * MAXG) * 4;
+        (TR * D + TK * KS + TK * D + TR * TK + 4 * (TR / 2)
+         + 2 * TR) * 4;
 };
 
 template <typename TQ, typename TKV, int D>
@@ -133,37 +143,39 @@ decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     constexpr int VEC = 16 / sizeof(TKV);            // elements per 16 B
     constexpr int NV = TK * D / VEC / THREADS;       // 16 B loads / thread
     constexpr int GSTEP = THREADS / D;               // P·V head stride
-    constexpr int NGP = (MAXG + GSTEP - 1) / GSTEP;  // heads per thread (P·V)
+    constexpr int NGP = (TR + GSTEP - 1) / GSTEP;  // heads per thread (P·V)
     static_assert(NV >= 1 && THREADS % D == 0, "unsupported head dim");
 
     extern __shared__ float4 smem4[];
-    float* q_s = reinterpret_cast<float*>(smem4);    // (MAXG, D)
-    float* k_s = q_s + MAXG * D;                     // (TK, KS)
+    float* q_s = reinterpret_cast<float*>(smem4);    // (TR, D)
+    float* k_s = q_s + TR * D;                     // (TK, KS)
     float* v_s = k_s + TK * KS;                      // (TK, D)
-    float* p_s = v_s + TK * D;                       // (MAXG, TK)
-    float* red_s = p_s + MAXG * TK;                  // (4 warps, MAXG/2)
-    float* m_s = red_s + 4 * (MAXG / 2);             // (MAXG,)
-    float* alpha_s = m_s + MAXG;
+    float* p_s = v_s + TK * D;                       // (TR, TK)
+    float* red_s = p_s + TR * TK;                  // (4 warps, TR/2)
+    float* m_s = red_s + 4 * (TR / 2);             // (TR,)
+    float* alpha_s = m_s + TR;
 
     const int t = threadIdx.x;
     const int split = blockIdx.x;
     const int r = blockIdx.y;
     const int R = gridDim.y;
+    const int row0 = blockIdx.z * TR;            // this tile's first row
+    const int rows = min(group - row0, TR);      // ... and its rows
     int start, end;
     split_span(kv_length[r], window, n_split, split, start, end);
 
     // output slot: the final arrays when unsplit, else this split's partial
     const size_t orow = (size_t)split * R + r;
-    float* o_dst = o_out + orow * group * D;
-    float* m_dst = m_out + orow * group;
-    float* l_dst = l_out + orow * group;
+    float* o_dst = o_out + (orow * group + row0) * D;
+    float* m_dst = m_out + orow * group + row0;
+    float* l_dst = l_out + orow * group + row0;
 
     const int d_own = t % D;
     const int g0 = t / D;
     if (start >= end) {                  // nothing live: the skipped row
         for (int gi = 0; gi < NGP; ++gi) {
             const int g = g0 + gi * GSTEP;
-            if (g < group) {
+            if (g < rows) {
                 o_dst[g * D + d_own] = 0.0f;
                 if (d_own == 0) {
                     m_dst[g] = NEG_INF;
@@ -174,10 +186,10 @@ decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         return;
     }
 
-    const TQ* qr = q + (size_t)r * group * D;
-    for (int i = t; i < group * D; i += THREADS)
+    const TQ* qr = q + ((size_t)r * group + row0) * D;
+    for (int i = t; i < rows * D; i += THREADS)
         q_s[i] = to_f(qr[i]) * scale;
-    if (t < MAXG) m_s[t] = NEG_INF;
+    if (t < TR) m_s[t] = NEG_INF;
 
     const TKV* kr = k + (size_t)r * S * D;
     const TKV* vr = v + (size_t)r * S * D;
@@ -221,17 +233,17 @@ decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
         // scores for key j_own, heads h_own, h_own + 2, ...
         const bool live = base + j_own < end;
-        float s[MAXG / 2];
+        float s[TR / 2];
 #pragma unroll
-        for (int gi = 0; gi < MAXG / 2; ++gi) s[gi] = 0.0f;
+        for (int gi = 0; gi < TR / 2; ++gi) s[gi] = 0.0f;
         const float4* k4 = reinterpret_cast<const float4*>(k_s + j_own * KS);
 #pragma unroll 4
         for (int d4 = 0; d4 < D / 4; ++d4) {
             const float4 kk = k4[d4];
 #pragma unroll
-            for (int gi = 0; gi < MAXG / 2; ++gi) {
+            for (int gi = 0; gi < TR / 2; ++gi) {
                 const int g = h_own + 2 * gi;
-                if (g < group) {
+                if (g < rows) {
                     const float4 qq =
                         reinterpret_cast<const float4*>(q_s + g * D)[d4];
                     s[gi] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z
@@ -240,25 +252,25 @@ decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
             }
         }
 #pragma unroll
-        for (int gi = 0; gi < MAXG / 2; ++gi) {
+        for (int gi = 0; gi < TR / 2; ++gi) {
             s[gi] = live ? cap_score(s[gi], softcap) : NEG_INF;
             const float mx = warp_max(s[gi]);
-            if (lane == 0) red_s[warp * (MAXG / 2) + gi] = mx;
+            if (lane == 0) red_s[warp * (TR / 2) + gi] = mx;
         }
         __syncthreads();
-        if (t < group) {                 // head t: the new running max
+        if (t < rows) {                  // head t: the new running max
             const int gi = t >> 1, w0 = 2 * (t & 1);
-            const float tm = fmaxf(red_s[w0 * (MAXG / 2) + gi],
-                                   red_s[(w0 + 1) * (MAXG / 2) + gi]);
+            const float tm = fmaxf(red_s[w0 * (TR / 2) + gi],
+                                   red_s[(w0 + 1) * (TR / 2) + gi]);
             const float m_new = fmaxf(m_s[t], tm);
             alpha_s[t] = expf(m_s[t] - m_new);
             m_s[t] = m_new;
         }
         __syncthreads();
 #pragma unroll
-        for (int gi = 0; gi < MAXG / 2; ++gi) {
+        for (int gi = 0; gi < TR / 2; ++gi) {
             const int g = h_own + 2 * gi;
-            if (g < group)
+            if (g < rows)
                 p_s[g * TK + j_own] = live ? expf(s[gi] - m_s[g]) : 0.0f;
         }
         __syncthreads();
@@ -267,7 +279,7 @@ decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
         for (int gi = 0; gi < NGP; ++gi) {
             const int g = g0 + gi * GSTEP;
-            if (g < group) {
+            if (g < rows) {
                 const float a = alpha_s[g];
                 acc[gi] *= a;
                 lsum[gi] *= a;
@@ -279,7 +291,7 @@ decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
             for (int gi = 0; gi < NGP; ++gi) {
                 const int g = g0 + gi * GSTEP;
-                if (g < group) {
+                if (g < rows) {
                     const float p = p_s[g * TK + j];
                     acc[gi] += p * vv;
                     lsum[gi] += p;
@@ -291,7 +303,7 @@ decode_attention_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
     for (int gi = 0; gi < NGP; ++gi) {
         const int g = g0 + gi * GSTEP;
-        if (g < group) {
+        if (g < rows) {
             o_dst[g * D + d_own] = acc[gi] / fmaxf(lsum[gi], 1e-30f);
             if (d_own == 0) {
                 m_dst[g] = m_s[g];
@@ -405,7 +417,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-template <int D>
+// MT: the m-tiles of 16 query rows a block holds (1, 2 or 4; see the head)
+template <int D, int MT>
 __global__ void __launch_bounds__(MMA_WARPS * 32, 2)
 decode_attention_mma_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
@@ -419,31 +432,38 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
     constexpr int CPR = D / 8;         // 16-byte chunks of a key row
     constexpr int NB = D / 8;          // n-blocks of 8 output columns
     constexpr int THR = MMA_WARPS * 32;
+    constexpr int KG = MMA_WARPS / MT; // warps sharing an m-tile
+    static_assert(KG * MT == MMA_WARPS, "MT divides the warps");
     extern __shared__ uint4 smem16[];
     uint8_t* smem = reinterpret_cast<uint8_t*>(smem16);
 
     const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
     const int split = blockIdx.x, r = blockIdx.y, R = gridDim.y;
+    const int row0 = blockIdx.z * TR;            // this tile's first row
+    const int rows = min(group - row0, TR);      // ... and its rows
     int start, end;
     split_span(kv_length[r], window, n_split, split, start, end);
 
     // output slot: the final arrays when unsplit, else this split's partial
     const size_t orow = (size_t)split * R + r;
-    float* o_dst = o_out + orow * group * D;
-    float* m_dst = m_out + orow * group;
-    float* l_dst = l_out + orow * group;
+    float* o_dst = o_out + (orow * group + row0) * D;
+    float* m_dst = m_out + orow * group + row0;
+    float* l_dst = l_out + orow * group + row0;
     if (start >= end) {                  // nothing live: the empty triple
-        for (int i = t; i < group * D; i += THR) o_dst[i] = 0.0f;
-        for (int i = t; i < group; i += THR) {
+        for (int i = t; i < rows * D; i += THR) o_dst[i] = 0.0f;
+        for (int i = t; i < rows; i += THR) {
             m_dst[i] = NEG_INF;
             l_dst[i] = 0.0f;
         }
         return;
     }
 
-    // Q as A fragments: heads h0 and h0 + 8 (zero past the group)
+    // Q as A fragments: rows h0 and h0 + 8 of this warp's m-tile (zero past
+    // the tile's rows)
+    const int mt = warp % MT, kg = warp / MT;
     const int h0 = lane >> 2, c2 = 2 * (lane & 3);
-    const bf16* qr = q + (size_t)r * group * D;
+    const bf16* qr = q + ((size_t)r * group + row0 + 16 * mt) * D;
+    const int mrows = rows - 16 * mt;            // live rows of the m-tile
     uint32_t qa[D / 16][4];
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
@@ -451,19 +471,22 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
         for (int x = 0; x < 4; ++x) {
             const int hh = h0 + 8 * (x & 1);
             const int d = 16 * ks + 8 * (x >> 1) + c2;
-            qa[ks][x] = hh < group
+            qa[ks][x] = hh < mrows
                 ? *reinterpret_cast<const uint32_t*>(qr + hh * D + d) : 0u;
         }
     }
 
-    // this warp's ring and its slices of each tile
-    uint8_t* ring = smem + warp * MMA_STAGES * 2 * L::SLICE;
+    // each warp copies slice `warp` of every tile into its own ring; it
+    // reads slices kg, kg + KG, ... (its own alone when MT = 1)
     const bf16* kr = k + (size_t)r * S * D;
     const bf16* vr = v + (size_t)r * S * D;
     const int n_tiles = (end - start + MMA_TK - 1) / MMA_TK;
+    auto stage = [&](int slice, int tile) {
+        return smem_u32(smem + (slice * MMA_STAGES + tile % MMA_STAGES) * 2
+                        * L::SLICE);
+    };
     auto issue = [&](int tile) {
-        const uint32_t ks_ = smem_u32(ring + (tile % MMA_STAGES) * 2
-                                      * L::SLICE);
+        const uint32_t ks_ = stage(warp, tile);
         const uint32_t vs_ = ks_ + L::SLICE;
         const int key0 = start + tile * MMA_TK + warp * MMA_KW;
 #pragma unroll
@@ -476,6 +499,9 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
             cp_async16(ks_ + so, kr + off, live ? 16 : 0);
             cp_async16(vs_ + so, vr + off, live ? 16 : 0);
         }
+    };
+    auto wait_all = [&]() {              // slices shared: a block barrier
+        if constexpr (MT > 1) __syncthreads(); else __syncwarp();
     };
 
     float acc[NB][4];
@@ -499,78 +525,86 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
         if (i + MMA_STAGES - 1 < n_tiles) issue(i + MMA_STAGES - 1);
         cp_async_commit();
         cp_async_wait<MMA_STAGES - 1>();
-        __syncwarp();
-        const uint32_t ks_ = smem_u32(ring + (i % MMA_STAGES) * 2 * L::SLICE);
-        const uint32_t vs_ = ks_ + L::SLICE;
+        wait_all();
+#pragma unroll
+        for (int sj = 0; sj < MT; ++sj) {
+            const int slice = kg + KG * sj;
+            const uint32_t ks_ = stage(slice, i);
+            const uint32_t vs_ = ks_ + L::SLICE;
 
-        // S = Q · Kᵀ: keys 0-7 in s0, 8-15 in s1
-        float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            // S = Q · Kᵀ: keys 0-7 in s0, 8-15 in s1
+            float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-            uint32_t b[4];
-            ldsm_x4(b, ks_ + swz<D>(jk, 2 * ks + ck) * 16);
-            mma16816(s0, qa[ks], b[0], b[1]);
-            mma16816(s1, qa[ks], b[2], b[3]);
-        }
+            for (int ks = 0; ks < D / 16; ++ks) {
+                uint32_t b[4];
+                ldsm_x4(b, ks_ + swz<D>(jk, 2 * ks + ck) * 16);
+                mma16816(s0, qa[ks], b[0], b[1]);
+                mma16816(s1, qa[ks], b[2], b[3]);
+            }
 
-        // scale, the cap, the length mask, the online softmax (rows h0,
-        // h0 + 8)
-        const int kb = start + i * MMA_TK + warp * MMA_KW + c2;
-        const bool lv[4] = {kb < end, kb + 1 < end, kb + 8 < end,
-                            kb + 9 < end};
-        float x[8];                       // (row, key) in s0/s1 order
+            // scale, the cap, the length mask, the online softmax (rows
+            // h0, h0 + 8)
+            const int kb = start + i * MMA_TK + slice * MMA_KW + c2;
+            const bool lv[4] = {kb < end, kb + 1 < end, kb + 8 < end,
+                                kb + 9 < end};
+            float x[8];                   // (row, key) in s0/s1 order
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            x[e] = lv[(e & 1)] ? cap_score(s0[e] * scale, softcap) : NEG_INF;
-            x[4 + e] = lv[2 + (e & 1)] ? cap_score(s1[e] * scale, softcap)
-                                       : NEG_INF;
-        }
-        float mx0 = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[4], x[5]));
-        float mx1 = fmaxf(fmaxf(x[2], x[3]), fmaxf(x[6], x[7]));
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float al0 = exp2f((m0 - mn0) * LOG2E);
-        const float al1 = exp2f((m1 - mn1) * LOG2E);
-        m0 = mn0;
-        m1 = mn1;
-        float p[8];
+            for (int e = 0; e < 4; ++e) {
+                x[e] = lv[(e & 1)] ? cap_score(s0[e] * scale, softcap)
+                                   : NEG_INF;
+                x[4 + e] = lv[2 + (e & 1)]
+                    ? cap_score(s1[e] * scale, softcap) : NEG_INF;
+            }
+            float mx0 = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[4], x[5]));
+            float mx1 = fmaxf(fmaxf(x[2], x[3]), fmaxf(x[6], x[7]));
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+            const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+            const float al0 = exp2f((m0 - mn0) * LOG2E);
+            const float al1 = exp2f((m1 - mn1) * LOG2E);
+            m0 = mn0;
+            m1 = mn1;
+            float p[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            const float mn = (e & 2) ? mn1 : mn0;
-            p[e] = x[e] > 0.5f * NEG_INF ? exp2f((x[e] - mn) * LOG2E) : 0.0f;
-        }
-        l0 = l0 * al0 + (p[0] + p[1] + p[4] + p[5]);
-        l1 = l1 * al1 + (p[2] + p[3] + p[6] + p[7]);
-        if (__any_sync(0xffffffffu, al0 != 1.0f || al1 != 1.0f)) {
+            for (int e = 0; e < 8; ++e) {
+                const float mn = (e & 2) ? mn1 : mn0;
+                p[e] = x[e] > 0.5f * NEG_INF ? exp2f((x[e] - mn) * LOG2E)
+                                             : 0.0f;
+            }
+            l0 = l0 * al0 + (p[0] + p[1] + p[4] + p[5]);
+            l1 = l1 * al1 + (p[2] + p[3] + p[6] + p[7]);
+            if (__any_sync(0xffffffffu, al0 != 1.0f || al1 != 1.0f)) {
 #pragma unroll
-            for (int nb = 0; nb < NB; ++nb) {
-                acc[nb][0] *= al0;
-                acc[nb][1] *= al0;
-                acc[nb][2] *= al1;
-                acc[nb][3] *= al1;
+                for (int nb = 0; nb < NB; ++nb) {
+                    acc[nb][0] *= al0;
+                    acc[nb][1] *= al0;
+                    acc[nb][2] *= al1;
+                    acc[nb][3] *= al1;
+                }
+            }
+            // P from the S accumulators straight into an A fragment
+            const uint32_t pa[4] = {pack_bf16(p[0], p[1]),
+                                    pack_bf16(p[2], p[3]),
+                                    pack_bf16(p[4], p[5]),
+                                    pack_bf16(p[6], p[7])};
+
+            // O += P · V
+#pragma unroll
+            for (int np = 0; np < D / 16; ++np) {
+                uint32_t b[4];
+                ldsm_x4_t(b, vs_ + swz<D>(jv, 2 * np + cv) * 16);
+                mma16816(acc[2 * np], pa, b[0], b[1]);
+                mma16816(acc[2 * np + 1], pa, b[2], b[3]);
             }
         }
-        // P from the S accumulators straight into an A fragment
-        const uint32_t pa[4] = {pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]),
-                                pack_bf16(p[4], p[5]), pack_bf16(p[6], p[7])};
-
-        // O += P · V
-#pragma unroll
-        for (int np = 0; np < D / 16; ++np) {
-            uint32_t b[4];
-            ldsm_x4_t(b, vs_ + swz<D>(jv, 2 * np + cv) * 16);
-            mma16816(acc[2 * np], pa, b[0], b[1]);
-            mma16816(acc[2 * np + 1], pa, b[2], b[3]);
-        }
-        __syncwarp();                    // the stage is free for a copy
+        wait_all();                      // the stage is free for a copy
     }
     cp_async_wait<0>();
 
-    // merge the four warps' partials once
+    // merge the partials of the KG warps of each m-tile once
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -581,12 +615,12 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
     float* ml = mm + MMA_WARPS * 16;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
-        float* row0 = mo + (warp * 16 + h0) * D + 8 * nb + c2;
-        float* row1 = row0 + 8 * D;
-        row0[0] = acc[nb][0];
-        row0[1] = acc[nb][1];
-        row1[0] = acc[nb][2];
-        row1[1] = acc[nb][3];
+        float* row0_ = mo + (warp * 16 + h0) * D + 8 * nb + c2;
+        float* row1_ = row0_ + 8 * D;
+        row0_[0] = acc[nb][0];
+        row0_[1] = acc[nb][1];
+        row1_[0] = acc[nb][2];
+        row1_[1] = acc[nb][3];
     }
     if ((lane & 3) == 0) {
         mm[warp * 16 + h0] = m0;
@@ -595,17 +629,20 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
         ml[warp * 16 + h0 + 8] = l1;
     }
     __syncthreads();
-    for (int i = t; i < group * D; i += THR) {
+    for (int i = t; i < rows * D; i += THR) {
         const int gh = i / D, d = i % D;
+        const int w0 = gh / 16, h = gh % 16;     // m-tile w0: warps w0 + MT·j
         float M = NEG_INF;
 #pragma unroll
-        for (int w = 0; w < MMA_WARPS; ++w) M = fmaxf(M, mm[w * 16 + gh]);
+        for (int j = 0; j < KG; ++j)
+            M = fmaxf(M, mm[(w0 + MT * j) * 16 + h]);
         float Lsum = 0.0f, O = 0.0f;
 #pragma unroll
-        for (int w = 0; w < MMA_WARPS; ++w) {
-            const float e = expf(mm[w * 16 + gh] - M);
-            Lsum += ml[w * 16 + gh] * e;
-            O += mo[(w * 16 + gh) * D + d] * e;
+        for (int j = 0; j < KG; ++j) {
+            const int w = w0 + MT * j;
+            const float e = expf(mm[w * 16 + h] - M);
+            Lsum += ml[w * 16 + h] * e;
+            O += mo[(w * 16 + h) * D + d] * e;
         }
         o_dst[i] = O / fmaxf(Lsum, 1e-30f);
         if (d == 0) {
@@ -617,12 +654,18 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
 
 static_assert(MMA_WARPS * 32 == THREADS, "one block size for both kernels");
 
+// query rows of one block's tile -> m-tiles of the tensor-core kernel
+static int mma_tiles(int group) {
+    const int rows = group < TR ? group : TR;
+    return rows <= 16 ? 1 : rows <= 32 ? 2 : 4;
+}
+
 template <typename TQ, typename TKV, int D>
-struct KernelSmem {              // the CUDA-core kernel's, for a type pair
+struct KernelSmem {              // the CUDA-core kernel's
     static constexpr int BYTES = DecodeSmem<TQ, TKV, D>::BYTES;
 };
 template <int D>
-struct KernelSmem<bf16, bf16, D> {   // the tensor-core kernel's
+struct KernelSmem<bf16, bf16, D> {      // the tensor-core kernel's
     static constexpr int BYTES = MmaSmem<D>::BYTES;
 };
 
@@ -638,7 +681,8 @@ static int launch_kernel(Kern kern, const void* q, const void* k,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const bool split = n_split > 1;
-    kern<<<dim3(n_split, R), THREADS, smem, stream>>>(
+    const int row_tiles = (group + TR - 1) / TR;
+    kern<<<dim3(n_split, R, row_tiles), THREADS, smem, stream>>>(
         (const TQ*)q, (const TKV*)k, (const TKV*)v, kv_length, group, S,
         n_split, scale, window, softcap, split ? o_part : o,
         split ? m_part : m,
@@ -651,6 +695,9 @@ static int launch_kernel(Kern kern, const void* q, const void* k,
     return (int)cudaGetLastError();
 }
 
+#define DECODE_ARGS q, k, v, kv_length, R, group, S, n_split, scale, window, \
+    softcap, o, m, l, o_part, m_part, l_part, stream
+
 template <typename TQ, typename TKV, int D>
 static int launch_typed(const void* q, const void* k, const void* v,
                         const int* kv_length, int R, int group, int S,
@@ -659,16 +706,22 @@ static int launch_typed(const void* q, const void* k, const void* v,
                         float* l, float* o_part, float* m_part,
                         float* l_part, cudaStream_t stream) {
     if constexpr (std::is_same<TQ, bf16>::value
-                  && std::is_same<TKV, bf16>::value)
+                  && std::is_same<TKV, bf16>::value) {
+        switch (mma_tiles(group)) {
+        case 1:
+            return launch_kernel<TQ, TKV, D>(
+                decode_attention_mma_kernel<D, 1>, DECODE_ARGS);
+        case 2:
+            return launch_kernel<TQ, TKV, D>(
+                decode_attention_mma_kernel<D, 2>, DECODE_ARGS);
+        default:
+            return launch_kernel<TQ, TKV, D>(
+                decode_attention_mma_kernel<D, 4>, DECODE_ARGS);
+        }
+    } else {
         return launch_kernel<TQ, TKV, D>(
-            decode_attention_mma_kernel<D>, q, k, v, kv_length, R, group, S,
-            n_split, scale, window, softcap, o, m, l, o_part, m_part, l_part,
-            stream);
-    else
-        return launch_kernel<TQ, TKV, D>(
-            decode_attention_fma_kernel<TQ, TKV, D>, q, k, v, kv_length, R,
-            group, S, n_split, scale, window, softcap, o, m, l, o_part,
-            m_part, l_part, stream);
+            decode_attention_fma_kernel<TQ, TKV, D>, DECODE_ARGS);
+    }
 }
 
 template <typename TQ, typename TKV>
@@ -702,7 +755,7 @@ static int launch_dim(int D, const void* q, const void* k, const void* v,
 // C entry point, bound with ctypes.  All pointers are device pointers on
 // the stream's device; the wrapper (kernels/decode_attention/kernel.py) has
 // checked shapes, types (q_bf16 / kv_bf16: 1 for bfloat16, 0 for float32),
-// contiguity, 16-byte alignment, group <= 16 and D in {32, 64, 128}
+// contiguity, 16-byte alignment, group >= 1 and D in {32, 64, 128}
 // (window < 0 and softcap <= 0 mean none).  The
 // partial buffers hold n_split * R rows and are read only when
 // n_split > 1.  Returns cudaGetLastError().

@@ -1,4 +1,4 @@
-"""Decode attention (one new token against a KV cache) for the port: the
+"""Decode attention (a step's new tokens against a KV cache) for the port: the
 Hopper kernel, its plain version and the ``cuda → plain`` dispatch.
 Returns the partial-softmax triple so sequence shards can be combined."""
 from .kernel import decode_attention_cuda

@@ -31,16 +31,16 @@ reset_launches = LIB.reset_launches
 build = LIB.build
 
 HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 16
 TILE = 64                # keys per tile (TK / MMA_TK in the source)
+ROW_TILE = 64            # query rows a block (TR in the source); a row
+#                          with more takes a block per tile of them
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMS: dict = {}
 #: blocks of the tensor-core kernel an SM holds at D = 128 (two rings of
 #: 96 KB); :func:`split_count` sizes one wave of them
 BLOCKS_PER_SM = 2
-# the source's constants: warps a block, keys a warp's slice, ring stages;
-# the CUDA-core kernel's head slots
-MMA_WARPS, MMA_KEYS, MMA_STAGES, FMA_SLOTS = 4, 16, 3, 16
+# the source's constants: warps a block, keys a warp's slice, ring stages
+MMA_WARPS, MMA_KEYS, MMA_STAGES = 4, 16, 3
 
 
 def kernel_path(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
@@ -54,23 +54,31 @@ def kernel_path(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
     return "mma" if q_dtype == kv_dtype == torch.bfloat16 else "fma"
 
 
+def row_tiles(group: int) -> int:
+    """Blocks a row's ``group`` query rows take (the grid's third
+    dimension)."""
+    return -(-group // ROW_TILE)
+
+
 def smem_bytes(D: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block of the kernel the pair takes
-    (``MmaSmem`` / ``DecodeSmem`` in the source; the card tests hold the
-    two against each other)."""
+    (``MmaSmem`` / ``DecodeSmem`` in the source, the CUDA-core kernel's
+    with one head slot per row of a tile; the card tests hold the two
+    against each other)."""
     if kernel_path(q_dtype, kv_dtype) == "mma":
         ring = MMA_WARPS * MMA_STAGES * 2 * MMA_KEYS * D * 2
         merge = MMA_WARPS * (16 * D + 2 * 16) * 4
         return max(ring, merge)
-    G = FMA_SLOTS
+    G = ROW_TILE
     return (G * D + TILE * (D + 4) + TILE * D + G * TILE + 4 * (G // 2)
             + 2 * G) * 4
 
 
 def split_count(rows: int, S: int, sms: int) -> int:
-    """Blocks per row: one wave of :data:`BLOCKS_PER_SM` blocks on each of
-    ``sms`` SMs shared over ``rows`` rows (each row's live length is cut
-    into that many chunks), at least one, and no more than the 64-key
+    """Blocks per row tile: one wave of :data:`BLOCKS_PER_SM` blocks on
+    each of ``sms`` SMs shared over ``rows`` row tiles (the rows times
+    :func:`row_tiles`; each tile's live keys are cut into that many
+    chunks), at least one, and no more than the 64-key
     tiles of ``S``, the most keys a row can have live (the cache's
     capacity, or the window where that is smaller).  A pure function: the
     wrapper cannot read the rows' lengths without a synchronisation."""
@@ -90,10 +98,12 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float | None = None, *,
                           window: int | None = None,
                           softcap: float | None = None):
-    """Launch the kernel: q (R, group, D), k/v (R, S, D), each contiguous
-    float32 or bfloat16 on one CUDA device (k and v of one type),
-    kv_length (R,) int32 there → (o (R, group, D), m (R, group),
-    l (R, group)) float32; :func:`split_count` blocks share each row's
+    """Launch the kernel: q (R, group, D) with any group ≥ 1 (a row's
+    query heads times its new tokens, folded as ``ops`` folds them), k/v
+    (R, S, D), each contiguous float32 or bfloat16 on one CUDA device (k
+    and v of one type), kv_length (R,) int32 there → (o (R, group, D),
+    m (R, group), l (R, group)) float32; :func:`row_tiles` blocks of up
+    to 64 rows take a row, :func:`split_count` blocks share each tile's
     live length (the last ``window`` keys of it, when given), and
     :func:`kernel_path` names the kernel the types take.  ``softcap``
     caps the scaled scores at ``softcap·tanh(s/softcap)``.  Raises on
@@ -111,9 +121,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != R or k.shape[2] != D or R < 1 or S < 1:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
                          f"not pair")
-    if D not in HEAD_DIMS or not 1 <= G <= MAX_GROUP:
+    if D not in HEAD_DIMS or G < 1:
         raise ValueError(f"head dim {D} (one of {HEAD_DIMS}) or group {G} "
-                         f"(1..{MAX_GROUP}) unsupported")
+                         f"(query rows a row, at least 1) unsupported")
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES \
             or v.dtype != k.dtype:
         raise ValueError(f"q, k, v must be float32 or bfloat16 (k and v "
@@ -133,7 +143,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"softcap must be > 0, got {softcap}")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     live = S if window is None else min(S, int(window))
-    n_split = split_count(R, live, _sms(dev))
+    n_split = split_count(R * row_tiles(G), live, _sms(dev))
     o = torch.empty((R, G, D), dtype=torch.float32, device=dev)
     m = torch.empty((R, G), dtype=torch.float32, device=dev)
     l = torch.empty((R, G), dtype=torch.float32, device=dev)

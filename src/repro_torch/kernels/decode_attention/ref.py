@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of decode attention (one new token against a KV
-cache) and of the combination of sequence-sharded partials.
+"""Plain PyTorch versions of decode attention (a step's new tokens, folded
+into each row's query rows, against a KV cache) and of the combination of
+sequence-sharded partials.
 
 The partial-softmax triple ``(o, m, l)``, on the folded GQA layout the
 kernel takes (row r is one (batch, kv head) pair with its ``group`` query

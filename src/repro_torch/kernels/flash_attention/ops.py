@@ -7,7 +7,9 @@ result in q's type.  The reference pads Sq and Skv to its block sizes; the
 kernel masks the ragged edges itself, so nothing is padded here.  Tensors
 on a CUDA device launch the hand-written kernel or raise; CPU tensors run
 the plain PyTorch version, which is for tests.  Nothing is caught: a
-failed build or launch propagates.
+failed build or launch propagates.  Tensors on ``meta`` (a trace of a
+step, ``repro_torch.launch.trace_analysis``) take :func:`flash_attention_meta`:
+the kernel's result buffer and its work booked, with no values.
 
 Queries may outnumber keys (Sq > Skv) only without a causal mask and a
 window, as the JAX package's ``blocked_attention`` allows: every query
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _meta
 from . import kernel, ref
 
 
@@ -32,6 +35,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's type; needs 1 ≤ Sq ≤ Skv, or Skv ≥ 1 with neither ``causal`` nor
     a ``window`` (every query then has a live key)."""
     ref.check_lengths(q.shape[2], k.shape[2], causal, window)
+    if q.device.type == "meta":
+        return flash_attention_meta(q, k, v, causal=causal, window=window,
+                                    out=out)
     if q.device.type == "cuda":
         return kernel.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window, softcap=softcap,
@@ -44,3 +50,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out is None:
         return res
     return out.copy_(res)
+
+
+def _sum_min(lo: int, hi: int, cap: int) -> int:
+    """Σ min(x, cap) over the integers lo ≤ x ≤ hi."""
+    if hi < lo:
+        return 0
+    top = min(hi, cap)
+    below = (lo + top) * (top - lo + 1) // 2 if top >= lo else 0
+    return below + cap * max(hi - max(cap, lo - 1), 0)
+
+
+def live_pairs(Sq: int, Skv: int, causal: bool, window: int | None) -> int:
+    """The (query, key) pairs of one head that the mask keeps, in closed
+    form: query i at position ``p = Skv − Sq + i`` sees the keys ``j ≤ p``
+    (causal) and ``j > p − window`` (a window) of ``0 ≤ j < Skv``."""
+    if causal:                          # min(p + 1, window) keys each
+        cap = Skv if window is None else window
+        return _sum_min(Skv - Sq + 1, Skv, cap)
+    if window is None:
+        return Sq * Skv
+    # min(Skv, Skv + window − 1 − p) keys each
+    return _sum_min(window, window + Sq - 1, Skv)
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel on ``meta``: the (B, Hq, Sq, D) result in q's type (the
+    buffer the CUDA wrapper allocates when ``out`` is not given), and one
+    launch booked: 4·D operations a live (query, key) pair and head, and
+    q, k, v read and the result written once."""
+    B, Hq, Sq, D = (int(n) for n in q.shape)
+    if out is None:
+        out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    pairs = B * Hq * live_pairs(Sq, int(k.shape[2]), causal, window)
+    nbytes = 2 * q.numel() * q.element_size() \
+        + (k.numel() + v.numel()) * k.element_size()
+    _meta.book("flash_attention", 4 * D * pairs, nbytes)
+    return out

@@ -16,8 +16,9 @@ whisper.
 
 ``SHAPES`` names the four assigned input shapes, as in the JAX package.
 The forward passes record gradients where the parameters require them;
-serving callers run them under ``torch.no_grad()``.  Decode takes one new
-token a step in every family (ROADMAP.md, queue 1).
+serving callers run them under ``torch.no_grad()``.  Decode takes several
+new tokens a step in the transformer families and whisper, as the JAX
+package does; RWKV6 and Zamba2 take one (their non-chunked scans).
 """
 from __future__ import annotations
 

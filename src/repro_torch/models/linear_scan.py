@@ -75,6 +75,17 @@ def chunked_linear_scan(q, k, v, logw, state0, *, inclusive: bool,
     return out[:, :, :T0], S
 
 
+def check_one_token(n_new: int) -> None:
+    """Raise unless a decode step brings one new token: the non-chunked
+    scan (:func:`linear_scan_decode`) steps the state by one token, and
+    the JAX package's decode passes it only the first (``[:, 0]``) of
+    several, whose shapes then fail to reshape."""
+    if n_new != 1:
+        raise ValueError(f"decode of {n_new} new tokens a step: the "
+                         f"non-chunked scan steps its state one token at a "
+                         f"time")
+
+
 def linear_scan_decode(q, k, v, logw, state, *, inclusive: bool,
                        bonus=None):
     """Single-token recurrence (serving): all inputs (B, H, N|P); state

@@ -25,7 +25,8 @@ from . import params as P
 from . import transformer
 from .config import ModelConfig
 from .layers import rms_norm
-from .linear_scan import chunked_linear_scan, linear_scan_decode
+from .linear_scan import (check_one_token, chunked_linear_scan,
+                          linear_scan_decode)
 from .params import TensorSpec
 
 LORA_R = 64
@@ -209,7 +210,7 @@ def forward_decode(cfg: ModelConfig, model: P.ParamTree, batch: dict,
     updated in place.  ``pos`` is unused (RWKV has no positional
     encoding) but kept for API symmetry.  → (logits (B, 1, V), state)."""
     x = transformer.embed_tokens(model, batch["tokens"])
-    transformer.check_decode_supported(x.shape[1], pos, None)
+    check_one_token(x.shape[1])
     for layer, blk in enumerate(model.blocks):
         x, xa, xf, wkv = _block(cfg, blk, x, state["x_att"][layer],
                                 state["x_ffn"][layer], state["wkv"][layer],

@@ -29,7 +29,8 @@ from . import prng
 from . import transformer
 from .config import ModelConfig
 from .layers import rms_norm, rope_tables
-from .linear_scan import chunked_linear_scan, linear_scan_decode
+from .linear_scan import (check_one_token, chunked_linear_scan,
+                          linear_scan_decode)
 from .params import TensorSpec
 
 EXPAND = 2
@@ -274,8 +275,9 @@ def forward_decode(cfg: ModelConfig, model: P.ParamTree, batch: dict,
     ``pos`` → (logits (B, 1, V), the new state: new ``ssm`` and ``conv``
     tensors, the ``k``/``v`` caches written in place)."""
     tokens = torch.as_tensor(batch["tokens"])
-    pos = transformer.check_decode_supported(tokens.shape[1], pos,
-                                             state["k"].shape[3])
+    check_one_token(tokens.shape[1])
+    pos = transformer.check_decode_position(tokens.shape[1], pos,
+                                            state["k"].shape[3])
     hidden, ssm, conv = _run(cfg, model, tokens, state, pos, chunked=False)
     new_state = {"ssm": torch.stack(ssm), "conv": torch.stack(conv),
                  "k": state["k"], "v": state["v"]}

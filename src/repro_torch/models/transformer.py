@@ -26,8 +26,9 @@ package's ``jax.checkpoint`` around its scan body.
 
 Decode applies each layer's sliding window and the attention softcap
 inside the decode kernel, as the JAX package's ``decode_attention_jnp``
-does (gemma2).  Not ported yet (ROADMAP.md, queue 1): decode of more than
-one new token per step.
+does (gemma2), and takes any number of new tokens a step: each sees the
+whole cache up to the last of them, with no causal mask among them, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -42,8 +43,6 @@ from .config import ModelConfig
 from .layers import (aux_load_balance_loss, blocked_attention, moe_ffn,
                      rms_norm, rope, rope_tables, swiglu)
 from .params import TensorSpec
-
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
 
 
 # ---------------------------------------------------------------------------
@@ -154,9 +153,10 @@ def _attention(cfg: ModelConfig, p, x: torch.Tensor, tables, *,
         # cache instead
         ck[:, :, pos:pos + S] = k.transpose(1, 2)
         cv[:, :, pos:pos + S] = v.transpose(1, 2)
-        o = decode_attention(q[:, 0], ck, cv, kv_len, window=window,
-                             softcap=cfg.attn_softcap)[0]   # (B, Hq, hd)
-        out = o.reshape(B, S, Hq * hd)
+        o = decode_attention(q.transpose(1, 2), ck, cv, kv_len,
+                             window=window,
+                             softcap=cfg.attn_softcap)[0]   # (B, Hq, S, hd)
+        out = o.transpose(1, 2).reshape(B, S, Hq * hd)
     return out.to(x.dtype) @ p.wo
 
 
@@ -262,19 +262,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for name, s in cache_specs(cfg, batch, max_len).items()}
 
 
-def check_decode_supported(n_new: int, pos: int, smax: int | None) -> int:
-    """Raise for what the port's decode does not take: more than one new
-    token a step (the JAX package's decode attention has no causal mask
-    among new tokens), or a position past a cache of ``smax`` positions
-    (the JAX package's dynamic_update_slice would clamp it) → ``pos`` as
-    an int."""
-    if n_new != 1:
-        raise NotImplementedError(
-            f"decode of {n_new} new tokens at once is {_ROADMAP}: the JAX "
-            f"package's decode attention has no causal mask among new "
-            f"tokens")
+def check_decode_position(n_new: int, pos: int, smax: int) -> int:
+    """Raise where ``n_new`` new tokens at ``pos`` do not fit a cache of
+    ``smax`` positions (the JAX package's dynamic_update_slice would clamp
+    the write) → ``pos`` as an int."""
     pos = int(pos)
-    if smax is not None and not 0 <= pos <= smax - n_new:
+    if not 0 <= pos <= smax - n_new:
         raise ValueError(f"decode position {pos} outside a cache of "
                          f"{smax} positions")
     return pos
@@ -283,14 +276,16 @@ def check_decode_supported(n_new: int, pos: int, smax: int | None) -> int:
 @torch.no_grad()
 def forward_decode(cfg: ModelConfig, model: Transformer, batch: dict,
                    cache: dict, pos: int):
-    """One decode step.  batch["tokens"] (B, 1); cache {"k", "v"} (L, B,
-    Hkv, Smax, hd), updated in place; pos: the current length, shared by
-    every row.  → (logits (B, 1, V), the same cache).  A position past
-    the cache raises (the JAX package's dynamic_update_slice would clamp
-    it)."""
+    """One decode step of Sq new tokens.  batch["tokens"] (B, Sq); cache
+    {"k", "v"} (L, B, Hkv, Smax, hd), updated in place; pos: the current
+    length, shared by every row.  Every new token attends to the cache up
+    to ``pos + Sq``, with no mask among the new tokens (the JAX package's
+    ``decode_attention_jnp``).  → (logits (B, Sq, V), the same cache).  A
+    position past the cache raises (the JAX package's
+    dynamic_update_slice would clamp it)."""
     x = _embed(cfg, model, batch)
     B, S, _ = x.shape
-    pos = check_decode_supported(S, pos, cache["k"].shape[3])
+    pos = check_decode_position(S, pos, cache["k"].shape[3])
     positions = (pos + torch.arange(S, device=x.device)).expand(B, S)
     tables = rope_tables(positions, cfg.hd, cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]

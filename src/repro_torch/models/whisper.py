@@ -6,8 +6,9 @@ precomputed frame embeddings (B, n_frames, d) straight into the encoder
 (bidirectional self-attention: the flash kernel, non-causal); the decoder
 is a causal LM (self-attention through the flash kernel in prefill, the
 decode kernel over its cache in decode) with cross-attention into the
-encoder's keys and values (the flash kernel, non-causal, at Sq = 1 in
-decode; the decoder may be longer than the encoder, which the kernel
+encoder's keys and values (the flash kernel, non-causal, at the step's
+new tokens in decode; the decoder may be longer than the encoder, which
+the kernel
 takes when non-causal).  Decode carries the self-attention cache, written
 in place, and the precomputed encoder K/V.
 """
@@ -106,7 +107,7 @@ def _self_attn(cfg: ModelConfig, p, x, *, causal: bool, cache=None,
         S = x.shape[1]
         ck[:, :, pos:pos + S] = k
         cv[:, :, pos:pos + S] = v
-        out = decode_attention(q[:, :, 0], ck, cv, kv_len)[0][:, :, None]
+        out = decode_attention(q, ck, cv, kv_len)[0]     # (B, H, S, hd)
     return _merge(out, x.dtype) @ p.wo
 
 
@@ -156,7 +157,11 @@ def _decoder(cfg: ModelConfig, model: P.ParamTree, tokens, enc_kv, pos,
     x = transformer.embed_tokens(model, tokens)
     B, S, _ = x.shape
     start = 0 if pos is None else pos
-    x = x + model.pos_dec[start:start + S][None]
+    if start + S <= POS_DEC:
+        x = x + model.pos_dec[start:start + S][None]
+    else:   # past the table: the last row, as the JAX package's gather clamps
+        idx = (start + torch.arange(S, device=x.device)).clamp(max=POS_DEC - 1)
+        x = x + model.pos_dec[idx][None]
     ek, ev = enc_kv
     remat = cache is None and cfg.remat and torch.is_grad_enabled()
     if cache is not None:
@@ -209,11 +214,12 @@ def init_cache(cfg: ModelConfig, model: P.ParamTree, frames, batch: int,
 @torch.no_grad()
 def forward_decode(cfg: ModelConfig, model: P.ParamTree, batch: dict,
                    cache: dict, pos: int):
-    """One token at ``pos`` → (logits (B, 1, V), the cache, its
-    self-attention K/V written in place)."""
+    """Sq new tokens at ``pos`` (no mask among them, as in the JAX
+    package) → (logits (B, Sq, V), the cache, its self-attention K/V
+    written in place)."""
     tokens = torch.as_tensor(batch["tokens"])
-    pos = transformer.check_decode_supported(tokens.shape[1], pos,
-                                             cache["k"].shape[3])
+    pos = transformer.check_decode_position(tokens.shape[1], pos,
+                                            cache["k"].shape[3])
     hidden = _decoder(cfg, model, tokens, (cache["enc_k"], cache["enc_v"]),
                       pos, cache=cache)
     return hidden @ model.unembed, cache

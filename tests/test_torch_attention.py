@@ -20,6 +20,7 @@ from repro.kernels.decode_attention import ref as jdr
 from repro.kernels.flash_attention import ops as jfo
 from repro.kernels.flash_attention import ref as jfr
 from repro.models.transformer import decode_attention_jnp
+from repro_torch.kernels import _meta
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.decode_attention import kernel as DK
@@ -180,9 +181,11 @@ def test_decode_wrapper_refuses_cpu_tensors_and_counts_nothing():
     da.decode_attention_folded(q, k, k, lens)      # the plain version
     with pytest.raises(ValueError, match="CUDA tensor"):
         DK.decode_attention_cuda(q, k, k, lens)
-    with pytest.raises(ValueError):
-        da.decode_attention_folded(q.to("meta"), k.to("meta"),
-                                   k.to("meta"), lens.to("meta"))
+    booked = []                                     # a meta trace's branch
+    with _meta.recording(booked):
+        o, _, _ = da.decode_attention_folded(q.to("meta"), k.to("meta"),
+                                             k.to("meta"), lens.to("meta"))
+    assert o.device.type == "meta" and len(booked) == 1
     assert DK.launches() == before
 
 
@@ -274,9 +277,45 @@ def test_flash_plain_noncausal_with_more_queries_than_keys(Sq, Skv, Hq, Hkv,
                 fa.flash_attention(_t(q), _t(k), _t(v), **opts)
 
 
+@pytest.mark.parametrize("Hq,Hkv,Sq", [
+    (17, 1, 1),                 # 17 rows: one past a 16-row m-tile
+    (40, 8, 4),                 # 20: qwen3-14b's group at 4 new tokens
+    (32, 2, 2),                 # 32: glm4-9b's 16 a kv head, 2 tokens
+    (32, 2, 4),                 # 64: a whole row tile
+    (13, 1, 5),                 # 65: one past a row tile
+    (56, 8, 10)])               # 70: deepseek's group at 10 new tokens
+@pytest.mark.parametrize("window,softcap", [(None, None), (16, 30.0)])
+def test_decode_plain_at_many_query_rows_matches_the_jax_models_decode(
+        Hq, Hkv, Sq, window, softcap):
+    """Several new tokens a step, folded into group·Sq query rows as the
+    JAX model's ``decode_attention_jnp`` folds them (no mask among the new
+    tokens), at row counts around the kernel's 16-row m-tiles and 64-row
+    tiles, with gemma2's window and softcap and without."""
+    B, S, D = 2, 96, 32
+    rng = np.random.default_rng(Hq * 100 + Sq)
+    q = rng.normal(size=(B, Hq, Sq, D)) * 2.0
+    k, v = (rng.normal(size=(B, Hkv, S, D)) for _ in range(2))
+    L = np.asarray([S, 41], np.int32)
+    want = decode_attention_jnp(
+        jnp.asarray(q, jnp.float32), jnp.asarray(k, jnp.float32),
+        jnp.asarray(v, jnp.float32), jnp.asarray(L), window=window,
+        softcap=softcap)
+    o, m, l = da.decode_attention(_t(q), _t(k), _t(v), torch.from_numpy(L),
+                                  window=window, softcap=softcap)
+    assert o.shape == (B, Hq, Sq, D) and m.shape == l.shape == (B, Hq, Sq)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=F32["o"],
+                               rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers' host-side arithmetic (pure functions of shape and SM count)
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("group,tiles", [
+    (1, 1), (16, 1), (17, 1), (64, 1), (65, 2), (70, 2), (128, 2),
+    (129, 3)])
+def test_decode_row_tiles(group, tiles):
+    """A row's query rows take blocks of up to 64 rows."""
+    assert DK.row_tiles(group) == tiles
 @pytest.mark.parametrize("rows,S,sms,want", [
     (64, 32768, 132, 4),        # B = 8 x 8 kv heads: one wave of 256 blocks
     (32, 512, 132, 8),          # B = 4, cache 512: eight 64-key chunks

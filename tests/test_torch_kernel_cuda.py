@@ -294,12 +294,15 @@ def test_flash_attention_kernel_writes_through_strides(card):
 
 
 def test_attention_kernels_reject_what_they_do_not_take(card):
-    q = torch.zeros(4, 20, 64, device=card)            # group 20 > 16
+    q = torch.zeros(4, 20, 64, device=card)
     k = torch.zeros(4, 64, 64, device=card)
     lens = torch.ones(4, dtype=torch.int32, device=card)
     before = (DK.launches(), AK.launches())
-    with pytest.raises(ValueError):
-        DK.decode_attention_cuda(q, k, k, lens)
+    with pytest.raises(ValueError):                     # no query rows
+        DK.decode_attention_cuda(q[:, :0], k, k, lens)
+    with pytest.raises(ValueError):                     # head dim 96
+        DK.decode_attention_cuda(q.new_zeros(4, 20, 96), k.new_zeros(
+            4, 64, 96), k.new_zeros(4, 64, 96), lens)
     with pytest.raises(ValueError):
         DK.decode_attention_cuda(q[:, :4], k, k, lens.long())
     with pytest.raises(ValueError):
@@ -369,6 +372,33 @@ def test_decode_bf16_kernel_groups_and_tile_edges(card, S, group, D):
     dead = slice(Hkv, 2 * Hkv)
     assert torch.all(o[dead] == 0) and torch.all(l[dead] == 0) \
         and torch.all(m[dead] == -1e30)
+
+
+@pytest.mark.parametrize("rows", [17, 20, 32, 64, 65, 70, 128])
+@pytest.mark.parametrize("S", [63, 4096])           # unsplit and split
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_many_query_rows(card, rows, S, dtype):
+    """Several new tokens a step fold into group·Sq query rows: the
+    kernel at rows around its 16-row m-tiles and 64-row tiles (one
+    launch whatever the tiles), with a row of length 0 and one at S."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Hkv, D = 3, 2, 128
+    R = B * Hkv
+    q, k, v = _randn(card, rows * 31 + S, (R, rows, D), (R, S, D),
+                     (R, S, D), dtype=dtype)
+    lens = np.random.default_rng(rows + S).integers(1, S + 1, B)
+    lens[0], lens[1] = 0, S
+    lt = torch.from_numpy(np.repeat(lens, Hkv).astype(np.int32)).to(card)
+    before = DK.launches()
+    o, m, l = DK.decode_attention_cuda(q, k, v, lt)
+    torch.cuda.synchronize()
+    assert DK.launches() == before + 1
+    po, pm, pl = da.decode_attention_ref(q, k, v, lt)
+    to, tm, tl, _ = ATTN_TOL[dtype]
+    assert float((o - po).abs().max()) <= to
+    assert float((m - pm).abs().max()) <= tm
+    assert float(((l - pl).abs() / pl.clamp_min(1.0)).max()) <= tl
+    assert torch.all(o[:Hkv] == 0) and torch.all(l[:Hkv] == 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -345,9 +345,113 @@ def test_decode_matches_own_prefill(pair, arch):
     assert max(errs) < 5e-3, max(errs)
 
 
+MULTI_ARCHS = [a for a in ARCHS if a not in ("rwkv6_7b", "zamba2_1p2b")]
+PROMPT = 4                               # tokens decoded one by one first
+
+
+def _routed_as_jax(monkeypatch):
+    """Route the port's MoE FFN as the JAX package routes: each call of the
+    JAX package's ``moe_ffn`` sends the top-k experts of its router out
+    through an ordered debug callback (what it computes is unchanged), and
+    the port's next ``moe_ffn`` call takes them in place of its own top-k,
+    its gates its own probabilities at those experts."""
+    from repro.models import transformer as jtransformer
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import transformer as ttransformer
+    real_j, real_t, real_route = (jtransformer.moe_ffn,
+                                  ttransformer.moe_ffn, tlayers._route)
+    chosen, pending = [], []
+
+    def j_moe_ffn(x, router_w, *w, top_k, capacity_factor):
+        probs = jax.nn.softmax(x.astype(jnp.float32)
+                               @ router_w.astype(jnp.float32), axis=-1)
+        jax.debug.callback(lambda e: chosen.append(np.array(e)),
+                           jax.lax.top_k(probs, top_k)[1], ordered=True)
+        return real_j(x, router_w, *w, top_k=top_k,
+                      capacity_factor=capacity_factor)
+
+    def t_moe_ffn(*a, **kw):
+        pending.append(torch.from_numpy(chosen.pop(0)).long())
+        return real_t(*a, **kw)
+
+    def route(x, router_w, top_k):
+        probs, gates, experts = real_route(x, router_w, top_k)
+        if pending:
+            experts = pending.pop().to(x.device)
+            gates = probs.gather(-1, experts)
+        return probs, gates, experts
+    monkeypatch.setattr(jtransformer, "moe_ffn", j_moe_ffn)
+    monkeypatch.setattr(ttransformer, "moe_ffn", t_moe_ffn)
+    monkeypatch.setattr(tlayers, "_route", route)
+    return chosen
+
+
+@pytest.mark.parametrize("arch", MULTI_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multi_token_decode_matches_jax(pair, arch, dtype, monkeypatch):
+    """The eight families whose decode takes several new tokens a step:
+    a prompt decoded token by token, then Sq = 2, 3 and 5 new tokens at
+    once (no mask among them, as in the JAX package), from the same
+    carried parameters and state, against the JAX package's
+    ``forward_decode`` at the Sq = 1 tests' tolerance, every step.  The
+    MoE families in bf16 are routed as the JAX package routes: the two
+    frameworks' bf16 router logits differ by about that tolerance, so a
+    near tie may pick another expert, and one rerouted token changes
+    every new token's attention (and, with up to ten tokens over four
+    experts, the capacity drops); in float32 they route themselves."""
+    jc, jp, tc, tp = pair(arch, dtype)
+    chosen = _routed_as_jax(monkeypatch) \
+        if tc.n_experts and dtype == "bfloat16" else None
+    steps = (2, 3, 5)
+    batch = _batch(jc, 4, (B, PROMPT + sum(steps)))
+    toks = batch["tokens"]
+    frames = batch.get("frames")
+    jstate = japi.init_decode_state(jc, jp, B, MAX, frames=None if frames
+                                    is None else jnp.asarray(frames).astype(
+                                        jc.jdtype))
+    state = api.init_decode_state(tc, tp, B, MAX, frames=None if frames is
+                                  None else torch.from_numpy(frames).to(
+                                      tc.torch_dtype))
+    jdec = jax.jit(lambda p, b, st, t: japi.forward_decode(jc, p, b, st, t))
+    pos = 0
+    for n in (1,) * PROMPT + steps:
+        chunk = toks[:, pos:pos + n]
+        want, jstate = jdec(jp, {"tokens": jnp.asarray(chunk)}, jstate, pos)
+        if chosen is not None:
+            jax.effects_barrier()
+            assert len(chosen) == tc.n_layers
+        got, state = api.forward_decode(tc, tp,
+                                        {"tokens": torch.from_numpy(chunk)},
+                                        state, pos)
+        assert got.shape == (B, n, tc.padded_vocab)
+        if chosen is not None:
+            assert not chosen
+        got = got.float().numpy()[..., :jc.vocab]
+        _agree(got, np.asarray(want, np.float32)[..., :jc.vocab], dtype)
+        pos += n
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b"])
+def test_multi_token_decode_raises_in_both_packages(pair, arch):
+    """RWKV6 and Zamba2 step their non-chunked scans one token at a time:
+    the JAX package's decode takes the first of several new tokens
+    (``[:, 0]``) and fails to reshape; the port's raises first."""
+    jc, jp, tc, tp = pair(arch, "float32")
+    toks = _tokens(jc, 6, (B, 3))
+    jstate = japi.init_decode_state(jc, jp, B, MAX)
+    with pytest.raises(TypeError):
+        japi.forward_decode(jc, jp, {"tokens": jnp.asarray(toks)}, jstate, 0)
+    state = api.init_decode_state(tc, tp, B, MAX)
+    with pytest.raises(ValueError, match="non-chunked scan"):
+        api.forward_decode(tc, tp, {"tokens": torch.from_numpy(toks)},
+                           state, 0)
+
+
 def test_unported_families_and_decode_cases_raise():
-    """Every family runs; what still raises is decode of more than one new
-    token a step (ROADMAP.md, queue 1) and a position past the cache."""
+    """Every family runs and decodes one token; several new tokens a step
+    give their logits in the transformer families and whisper and raise
+    in the two with a non-chunked scan; a position past the cache raises;
+    an unknown family raises."""
     for arch in ARCHS:
         cfg = tconfigs.get_config(arch, smoke=True).scaled(dtype="float32")
         params = api.init_params(cfg, 0, device="cpu")
@@ -358,10 +462,14 @@ def test_unported_families_and_decode_cases_raise():
             state, 0)
         assert logits.shape == (1, 1, cfg.padded_vocab)
         assert bool(torch.isfinite(logits).all())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.forward_decode(
-                cfg, params, {"tokens": torch.ones(1, 2, dtype=torch.int32)},
-                state, 1)
+        two = {"tokens": torch.ones(1, 2, dtype=torch.int32)}
+        if arch in ("rwkv6_7b", "zamba2_1p2b"):
+            with pytest.raises(ValueError, match="non-chunked scan"):
+                api.forward_decode(cfg, params, two, state, 1)
+        else:
+            logits, state = api.forward_decode(cfg, params, two, state, 1)
+            assert logits.shape == (1, 2, cfg.padded_vocab)
+            assert bool(torch.isfinite(logits).all())
         if cfg.family != "ssm":              # rwkv keeps no positions
             with pytest.raises(ValueError, match="outside a cache"):
                 api.forward_decode(
@@ -386,3 +494,24 @@ def test_shapes_equal_the_jax_shapes():
     jspec = japi.decode_state_specs(jconfigs.get_config("qwen3_14b"), 4, 64)
     assert spec["k"].shape == tuple(jspec["k"].shape)
     assert str(spec["v"].dtype).split(".")[-1] == jspec["v"].dtype.name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_positions_past_the_decoder_table_match_jax(pair, dtype):
+    """Whisper's decoder has 4,096 position rows; a step past them takes
+    the last row, as the JAX package's gather clamps its indices (a
+    32,768-token cache reaches there)."""
+    jc, jp, tc, tp = pair("whisper_small", dtype)
+    pos, cap = 4094, 4100
+    toks = _tokens(jc, 8, (B, 3))
+    frames = _batch(jc, 8)["frames"]
+    jstate = japi.init_decode_state(jc, jp, B, cap, frames=jnp.asarray(
+        frames).astype(jc.jdtype))
+    state = api.init_decode_state(tc, tp, B, cap, frames=torch.from_numpy(
+        frames).to(tc.torch_dtype))
+    want, _ = japi.forward_decode(jc, jp, {"tokens": jnp.asarray(toks)},
+                                  jstate, pos)
+    got, _ = api.forward_decode(tc, tp, {"tokens": torch.from_numpy(toks)},
+                                state, pos)
+    _agree(got.float().numpy()[..., :jc.vocab],
+           np.asarray(want, np.float32)[..., :jc.vocab], dtype)
