@@ -2,11 +2,11 @@
 """Drive the PyTorch port's serving, tuning, in-memory lookup, LLM serving,
 training, multi-device and dry-run paths on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--draws 230000000]
-                          [--tune-draws 21000000]
+    python3 chip_smoke.py [--seed 0] [--draws 115000000]
+                          [--tune-draws 7000000]
 
 Phases (none catches its own failure; any failure exits non-zero), run in
-the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 16, 17, 12:
+the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 16, 17, 18, 12:
 
 1. Card: name and power limit from ``nvidia-smi``.
 2. Build: compile all seven kernels from ``src/repro_torch/csrc`` through
@@ -39,16 +39,17 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 16, 17, 12:
    which runs both levels, the plain ``segment_bases`` +
    ``segmented_step_lookup_torch``), and step and segmented rows the
    float64 ``layer.predict``.
-6. The serving path at a deployment's size: ~200 M unique int32-domain
-   keys from the paper's §7.1 100-cluster Gaussian mixture, 16-byte
-   records, a gstep(8, 4096) <- gband(1024) <- gstep(8, 4096) index
-   written paged with CRCs, served by ``IndexService`` on the card (two
-   resident layers, a 1 MiB + 8 MiB block cache, a two-deep prefetch
-   pipeline) over a uniform and a Zipf(1.1) stream of 96 batches x 4096
-   keys (256 before phase 14 took their time, 128 before phase 15).  Every range must contain its key's record, equal the numpy
+6. The serving path at a deployment's size: ~100 M unique int32-domain
+   keys (half the SOSD scale: the run's time limit) from the paper's §7.1
+   100-cluster Gaussian mixture, 16-byte records, a gstep(8, 4096) <-
+   gband(1024) <- gstep(8, 4096) index written paged with CRCs, served by
+   ``IndexService`` on the card (two resident layers, a 1 MiB + 8 MiB
+   block cache, a two-deep prefetch pipeline) over a uniform and a
+   Zipf(1.1) stream of 48 batches x 4096 keys (cut from 256 by the run's
+   time limit).  Every range must contain its key's record, equal the numpy
    backend's ranges, and a 2,000-key sample must equal
    ``SerializedIndex.lookup``.
-7. The tuning path: ~14 M keys of the same mixture (cut from ~200 M by the
+7. The tuning path: ~7 M keys of the same mixture (cut from ~200 M by the
    run's time limit).  Generation 0 of phase 8 is
    ``Index.tune(D, "azure_ssd", TuneSpec(k=5, page_bytes=4096)).build()``,
    the run's one cold build; its retained ``LayerCache`` serves the
@@ -98,7 +99,18 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 16, 17, 12:
    (70 rows, two tiles) and gemma2's (32/16, window 4,096, softcap 50) at
    Sq = 8, caches 1/4095/32768, f32 and bf16, and the bf16 kernel timed
    at qwen3-14b's heads (B = 4, cache 4,096) for Sq = 1, 4 and 8 beside
-   its bound and SDPA with a length mask.
+   its bound and SDPA with a length mask; the JAX package's
+   ``blocked_attention`` masks through the flash kernel at B = 4, f32 and
+   bf16, one launch a call, queries with no live key exactly 0: a chunked
+   prefill (qwen3-14b's heads, 512 queries at ``q_offset`` 2,048 of a
+   4,096-slot cache filled to 2,560), rows padded to 4,096 (``kv_length``
+   4,096/3,001/1,537/512, causal, end-aligned) and gemma2's window and
+   softcap over 512 queries at 6,144 of an 8,192-slot cache with row
+   lengths; three wrong plain versions (the lengths dropped, the offset
+   dropped, the lengths one short) must fail the bf16 bound; each case's
+   bf16 time L2-cold beside its bound (live pairs x 4 D at the bf16 rate,
+   or the bytes of q, the output and each row's needed keys) and SDPA
+   with a boolean mask.
    Limits: f32 at the JAX tests' own (flash 2e-5; decode 3e-5 on o, 1e-5
    on m, l relative 1e-5), with TF32 off for the plain versions; bf16
    2e-2.
@@ -124,23 +136,23 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 16, 17, 12:
    no plain attention runs; the path's peak memory; then the page table of
    the loop's requests tuned for ``h100_hbm`` on the card.  The phase runs
    under ``torch.no_grad()``: serving builds no autograd graph.
-14. The training path, after phase 11 with its model freed: a token
-   store of 2^18 records (64..511 tokens each, token ranks drawn by
-   Zipf's law over qwen3's vocab) written and opened on azure_ssd (its
-   sample index tuned by AirTune), 1,024 random ``get``s equal to their
-   records; ``FlashAttention`` at the training shape (B = 4, S = 512,
-   40/8 heads of 128, bf16, causal) against the plain version in float32:
-   its output (the flash kernel) within the bf16 flash limit 2e-2, and
-   its dq, dk, dv within 2e-2 of max |grad| of autograd through the plain
-   version; then the port's
-   ``launch.train.run`` on qwen3-14b at full width, 14 of its 40 layers,
-   bf16, remat, batch 4 x 512, the default AdamW, 12 steps with a
-   checkpoint every 6, a host killed after step 8 so the supervisor
-   restores the step-6 checkpoint (every restored leaf's sha1 equal to
-   the saved tree's) and replays: exactly 2 flash launches a layer and
-   step call (the forward and the remat recompute), no plain attention,
-   finite losses that fall (the launcher's own assertion); step call 2 is
-   traced for the device busy share and its top kernels.
+14. The training path, after phase 11 with its model freed: a token store
+   of 2^18 records (64..511 tokens each, token ranks drawn by Zipf's law
+   over qwen3's vocab) written and opened on azure_ssd (its sample index
+   tuned by AirTune), 1,024 random ``get``s equal to their records;
+   ``FlashAttention`` at the training shape (B = 4, S = 512, 40/8 heads of
+   128, bf16, causal) against the plain version in float32: its output
+   (the flash kernel) within the bf16 flash limit 2e-2, and its dq, dk, dv
+   within 2e-2 of max |grad| of autograd through the plain version, and
+   again with the rows padded to lengths 512/389/200/64 (``kv_length``);
+   then the port's ``launch.train.run`` on qwen3-14b at full width, 14 of
+   its 40 layers, bf16, remat, batch 4 x 512, the default AdamW, 11 steps
+   with a checkpoint every 6 (one save), a host killed after step 8 so the
+   supervisor restores the step-6 checkpoint (every restored leaf's sha1
+   equal to the saved tree's) and replays: exactly 2 flash launches a
+   layer and step call (the forward and the remat recompute), no plain
+   attention, finite losses that fall (the launcher's own assertion); step
+   call 2 is traced for the device busy share and its top kernels.
 15. The other families, after phase 14 with its model freed, under
    ``torch.no_grad()`` in bf16, weights from ``init_params`` on the card:
    llama4-scout-17b-a16e (16 experts top-1 + a shared expert; 12 of its
@@ -194,23 +206,37 @@ the order 1, 2, 3, 4, 5, 10, 6, 7, 8, 9, 13, 11, 14, 15, 16, 17, 12:
    must reach the model FLOPs (6 N tokens + attention's) and their ratio
    is printed; and the qwen3-14b row of ``python -m
    repro_torch.launch.dryrun --mesh both``, run on the host's CPU with
-   the card hidden, must give 6 ok and 2 skipped records, each printed.
-13. The sharded fleet on the card, after phase 9: the tuning phase's keys
-   with 1 KiB records (the record size of the JAX package's fleet
-   scenario, benchmarks/serve_bench.py:383) as 4 key-range shards, each
-   tuned on the card with the default λ grid (``Fleet.tune(D,
-   "azure_ssd", FleetSpec(n_shards=4, tune=TuneSpec(k=5,
-   page_bytes=4096), serve=ServeSpec(persist_stats=True),
-   cache_budget_bytes=B)).build()``, B half the shards' cacheable
-   working sets together), saved, reopened with ``Fleet.open(dir,
-   data=D)`` and served on the card over a uniform and a Zipf(1.1)
-   stream of 64 batches x 4096 keys through ``lookup_batches``: every
-   range must contain its record and equal a numpy-backend
-   ``FleetService``'s, a 2,000-key sample must equal ``Fleet.lookup``,
-   exactly one ``fused_descent`` launch a non-empty shard sub-batch and
-   no plain descent; a shard whose disk dies after open must raise
-   ``ShardUnavailableError``, and ``partial_results=True`` must mask
-   exactly its keys and leave the others unchanged.
+   the card hidden (started before phase 15, so it runs beside phases 15
+   and 16), must give 6 ok and 2 skipped records, each printed.
+18. The port's seven examples (``examples/torch``: quickstart,
+   serve_index, retune_daemon, serve_fleet, data_pipeline, serve_llm,
+   train_llm), each a process of its own on the card at its defaults, one
+   after another (so each wall is that example's alone), after phase 17:
+   each must exit 0 (their own
+   assertions: spec round trips, batch atomicity across the hot swap, the
+   fleet's scatter-gather identity, the token store's round trip, falling
+   losses); each one's wall and the launches of every kernel it reached
+   are printed.  Then the JAX package's deprecated entry points on the
+   card: an index over 400,000 keys below 2^31 read by ``lookup_file``,
+   served by ``IndexService(path, use_device=True, resident_layers=2)``
+   (exactly one fused-descent launch) and by
+   ``Index.serve(use_device=True)``, each equal to the numpy facade's
+   ranges, and ``load_index`` equal to the facade's design.
+13. The sharded fleet on the card, after phase 9: 1 in 2 of the tuning
+   phase's keys with 1 KiB records (the record size of the JAX package's
+   fleet scenario, benchmarks/serve_bench.py:383) as 4 key-range shards,
+   each tuned on the card with the default λ grid (``Fleet.tune(D,
+   "azure_ssd", FleetSpec(n_shards=4, tune=TuneSpec(k=5, page_bytes=4096),
+   serve=ServeSpec(persist_stats=True), cache_budget_bytes=B)).build()``,
+   B half the shards' cacheable working sets together), saved, reopened
+   with ``Fleet.open(dir, data=D)`` and served on the card over a uniform
+   and a Zipf(1.1) stream of 32 batches x 4096 keys through
+   ``lookup_batches``: every range must contain its record and equal a
+   numpy-backend ``FleetService``'s, a 2,000-key sample must equal
+   ``Fleet.lookup``, exactly one ``fused_descent`` launch a non-empty
+   shard sub-batch and no plain descent; a shard whose disk dies after
+   open must raise ``ShardUnavailableError``, and ``partial_results=True``
+   must mask exactly its keys and leave the others unchanged.
 12. Numbers: each phase's wall; sizes, build/generation times, per-stream
    qps, lookup wall, descent seconds, roofline and hit rate; the fleet's
    tune and save walls, lookups/s a stream, each shard's hit rate and
@@ -285,19 +311,21 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 RECORD_BYTES = 16
 N_BATCHES = 256                  # phase 9's stream
-SERVE_BATCHES = 96               # phase 6's streams (256 before phase 14,
-                                 # 128 before phase 15)
+SERVE_BATCHES = 48               # phase 6's streams (cut from 256 by the
+                                 # run's time limit; PERF.md §4)
 BATCH = 4096
 ZIPF_A = 1.1
-DRAWS = 230_000_000              # ~200 M unique keys: the SOSD scale
-TUNE_DRAWS = 14_000_000          # ~14 M unique keys: the tuning phase
-                                 # (~20 M before phase 14 took its time)
+SOSD_DRAWS = 230_000_000         # ~200 M unique keys: the SOSD scale
+DRAWS = 115_000_000              # ~100 M unique keys: phase 6's, cut from
+                                 # SOSD_DRAWS by the run's time limit
+TUNE_DRAWS = 7_000_000           # ~7 M unique keys: the tuning phase
 TUNE_TIERS = ("azure_ssd", "azure_nfs", "azure_hdd")
 P99 = {"p": 0.99, "weight": 1.0}
 TUNE_BATCHES = 64
 FLEET_SHARDS = 4
 FLEET_K = 5                      # each shard's Alg. 2 beam
-FLEET_BATCHES = 64
+FLEET_BATCHES = 32
+FLEET_STRIDE = 2                 # the fleet takes 1 in 2 tuning keys
 # the record size of the JAX package's fleet scenario
 # (benchmarks/serve_bench.py:376-383): 1 KiB records put each shard's
 # optimum at two layers with a disk-resident bottom layer, where a cache
@@ -356,6 +384,25 @@ FLASH_WINDOWED = (
     dict(B=2, Hq=4, Hkv=4, Sq=1000, Skv=1000, D=64, window=129,
          softcap=50.0),
 )
+# blocked_attention's masks through the flash kernel, B = 4: (what, arch
+# whose heads, window and softcap it takes, case).  A chunked prefill (512
+# queries at 2,048 of a 4,096-slot cache filled to 2,560), rows padded to
+# 4,096 (prompts of 4,096, 3,001, 1,537 and 512 tokens, causal,
+# end-aligned), and gemma2's window and softcap over a chunk at 6,144 of
+# an 8,192-slot cache with per-row lengths
+MASK_B = 4
+MASK_CASES = (
+    ("chunked prefill", "qwen3-14b",
+     dict(Sq=512, Skv=4096, q_offset=2048, lengths=(2560,) * 4)),
+    ("padded rows", "qwen3-14b",
+     dict(Sq=4096, Skv=4096, lengths=(4096, 3001, 1537, 512))),
+    ("windowed rows", "gemma2-27b",
+     dict(Sq=512, Skv=8192, q_offset=6144, lengths=(6656, 6600, 6400, 6145))),
+)
+# the wrong plain versions that must fail the bf16 bound: (case, change)
+MASK_CONTROLS = (("padded rows", "mask dropped"),
+                 ("chunked prefill", "offset dropped"),
+                 ("padded rows", "lengths shifted by one"))
 DECODE_GROUPS = (1, 4, 5, 8, 16)
 DECODE_EDGE_S = (1, 63, 64, 65, 4096, 32768)
 # gemma2's decode: its real heads (32 query, 16 kv, D = 128), window 4,096
@@ -387,7 +434,7 @@ QUEUED_CALLS = 20                # calls queued at once where a trace fails
 # port's launcher with a restore
 TRAIN_LAYERS = 14                # the deepest that fits an 80 GB H100
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
-TRAIN_STEPS = 12
+TRAIN_STEPS = 11                 # one checkpoint save, at step 6
 TRAIN_CKPT_EVERY = 6
 TRAIN_KILL_AFTER = 8             # a host dies after this step
 TRAIN_TRACED = 2                 # the step call traced for the busy share
@@ -396,6 +443,7 @@ STORE_LENGTHS = (64, 512)        # a record's tokens: 64..511
 TOKEN_ZIPF = 1.0                 # token ranks drawn by Zipf's law
 STORE_GETS = 1024
 GRAD_TOL = 2e-2                  # attention gradients vs plain autograd
+TRAIN_PADDED = (512, 389, 200, 64)   # the gradient check's padded rows
 # phase 15: the other families at their published widths, each depth cut
 # only where one card's memory or the run's time limit asks
 FAMILIES = (                     # (arch, layers kept; None: full depth)
@@ -430,6 +478,26 @@ MULTI_TIMED_B, MULTI_TIMED_S = 4, 4096
 # phase 17: the dry run's prediction of the card's bytes, at most this far
 # off (relative); the qwen3-14b row of the dry run at both meshes
 DRY_TOL = 0.20
+# phase 18: the port's examples, each a process of its own on the card
+EXAMPLES = ("quickstart", "serve_index", "retune_daemon", "serve_fleet",
+            "data_pipeline", "serve_llm", "train_llm")
+EXAMPLE_TIMEOUT = 120            # seconds an example may take, at most
+# runs one example as __main__, then prints the launches of every kernel
+# of the port in that process on a line of its own
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+path = sys.argv[1]
+sys.argv = [path]
+runpy.run_path(path, run_name="__main__")
+from repro_torch.kernels.candidate_score import kernel as CK
+from repro_torch.kernels.decode_attention import kernel as DK
+from repro_torch.kernels.flash_attention import kernel as AK
+from repro_torch.kernels.fused_descent import kernel as FK
+from repro_torch.kernels.index_lookup import kernel as IK
+libs = [FK.LIB, CK.LIB, *IK.LIBS, DK.LIB, AK.LIB]
+print("LAUNCHES " + json.dumps({lib.name: lib.launches() for lib in libs}))
+"""
+SHIM_KEYS = 400_000              # phase 18's shim index, in the int32 domain
 DRY_ARCH = "qwen3_14b"
 DIST_SHARDS = 4                  # phase 16's sequence shards
 DIST_B, DIST_S = 8, 32768        # phase 16's decode batch and cache
@@ -945,11 +1013,12 @@ def serve_phase(args, device, card, max_err: float) -> dict:
     from repro_torch.kernels.fused_descent import kernel as K
     from repro_torch.kernels.fused_descent import ops as FO
 
-    if args.draws < DRAWS:
-        log(f"reduced: {args.draws} mixture draws instead of {DRAWS}")
+    if args.draws < SOSD_DRAWS:
+        log(f"reduced: {args.draws} mixture draws instead of {SOSD_DRAWS} "
+            f"(~200 M unique keys, the SOSD scale; the run's time limit)")
     log(f"reduced: streams of {SERVE_BATCHES} batches instead of 256 (the "
         f"run's time limit: 128 since the training phase, 96 since the "
-        f"families phase)")
+        f"families phase, 48 since the examples phase)")
     t0 = time.perf_counter()
     keys = make_keys(args.draws, args.seed)
     t_gen = time.perf_counter() - t0
@@ -1152,10 +1221,10 @@ def tune_phase(args, device, card, max_rel: float) -> tuple:
     from repro_torch.kernels.candidate_score import kernel as CK
     from repro_torch.kernels.fused_descent import kernel as FK
 
-    if args.tune_draws < DRAWS:
+    if args.tune_draws < SOSD_DRAWS:
         log(f"reduced: tuning on {args.tune_draws} mixture draws instead of "
-            f"{DRAWS} (a cold tune builds on the host at ~5 s per million "
-            f"keys; the run's time limit forces the cut)")
+            f"{SOSD_DRAWS} (a cold tune builds on the host at ~5 s per "
+            f"million keys; the run's time limit forces the cut)")
     t0 = time.perf_counter()
     keys = make_keys(args.tune_draws, args.seed + 3)
     D = KeyPositions.fixed_record(keys, RECORD_BYTES)
@@ -1931,9 +2000,13 @@ def fleet_phase(args, device, card, tuned: dict) -> int:
     from repro_torch.kernels.fused_descent import ref as FR
     from repro_torch.serve import cacheable_working_set
 
-    keys = tuned["keys"]
+    keys = np.ascontiguousarray(tuned["keys"][::FLEET_STRIDE])
     D = KeyPositions.fixed_record(keys, FLEET_RECORD)
-    log(f"fleet: the tuning phase's {D.n} keys with {FLEET_RECORD}-byte "
+    log(f"reduced: the fleet holds 1 in {FLEET_STRIDE} of the tuning "
+        f"phase's keys and serves streams of {FLEET_BATCHES} batches "
+        f"instead of 64 (the run's time limit: a cold shard tune builds on "
+        f"the host)")
+    log(f"fleet: {D.n} of the tuning phase's keys with {FLEET_RECORD}-byte "
         f"records")
     spec = FleetSpec(n_shards=FLEET_SHARDS,
                      tune=TuneSpec(k=FLEET_K, page_bytes=4096),
@@ -2182,6 +2255,7 @@ def check_attention_kernels(device, seed: int, card: str) -> dict:
             check_flash(o, want, str(dt).split(".")[-1], case)
             n_fl += 1
             del q, k, v, o, want
+    n_fl += check_flash_masks(device, randn, check_flash, card)
     log(f"attention check: {n_dec} decode cases, max |o| err "
         f"{errs['decode_attention']:.3e}; {n_fl} flash cases, max abs err "
         f"{errs['flash_attention']:.3e}; float32 within "
@@ -2282,6 +2356,122 @@ def check_multi_token_decode(device, rng, randn, check_decode,
 
 # ---------------------------------------------------------------------------
 # phase 11: the LLM serving path at qwen3-14b's full width
+def mask_case(arch: str, case: dict, randn, device, dt):
+    """One MASK_CASES entry's inputs at ``arch``'s heads: q, k, v in
+    ``dt`` and the kernel's keyword arguments (q scaled by 4 where a
+    softcap applies, so the scores reach where the cap bends them)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    c = dict(case)
+    Sq, Skv = c.pop("Sq"), c.pop("Skv")
+    c["kv_length"] = torch.tensor(c.pop("lengths"), dtype=torch.int32,
+                                  device=device)
+    c.update(window=cfg.sliding_window, softcap=cfg.attn_softcap)
+    q = randn((MASK_B, Hq, Sq, D), dt)
+    if c["softcap"]:
+        q = q * 4
+    return q, randn((MASK_B, Hkv, Skv, D), dt), \
+        randn((MASK_B, Hkv, Skv, D), dt), c
+
+
+def plain_by_row(q, k, v, **c):
+    """The flash kernel's plain version one batch row at a time (a whole
+    (B, Hq, 4096, 4096) float32 logit matrix would take 10.7 GB a copy)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    lens = c.pop("kv_length", None)
+    return torch.cat([attention_ref(
+        q[b:b + 1], k[b:b + 1], v[b:b + 1], **c,
+        kv_length=None if lens is None else lens[b:b + 1])
+        for b in range(q.shape[0])])
+
+
+def check_flash_masks(device, randn, check_flash, card: str) -> int:
+    """blocked_attention's ``q_offset`` and ``kv_length`` through the
+    flash kernel: each MASK_CASES case in bf16 and f32, one launch a call,
+    against the plain version within ATTN_TOL, every query with no live
+    key exactly 0; three wrong plain versions (MASK_CONTROLS) that must
+    fail the bf16 bound; then each case's bf16 time, L2-cold, beside its
+    bound (the live pairs' 4·D operations at the bf16 rate, or the bytes
+    of q, the output and each row's needed keys) and SDPA with a boolean
+    mask → the number of cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import kernel as AK
+    from repro_torch.kernels.flash_attention.ref import live_mask
+    n, bf_out = 0, {}
+    for what, arch, case in MASK_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, c = mask_case(arch, case, randn, device, dt)
+            before = AK.launches()
+            o = flash_attention_cuda(q, k, v, **c)
+            torch.cuda.synchronize()
+            if AK.launches() != before + 1:
+                raise AssertionError(f"flash {what}: {AK.launches() - before}"
+                                     f" launches for one call")
+            want = plain_by_row(q, k, v, **c)
+            check_flash(o, want, str(dt).split(".")[-1],
+                        f"{what} ({arch}) {case}")
+            live = live_mask(q.shape[2], k.shape[2], True, c["window"],
+                             c.get("q_offset", k.shape[2] - q.shape[2]),
+                             c["kv_length"], device)
+            dead = ~live.any(dim=-1)                       # (B, Sq)
+            if not torch.all(o.transpose(1, 2)[dead] == 0):
+                raise AssertionError(f"flash {what}: a query with no live "
+                                     f"key is not 0")
+            if dt == torch.bfloat16:
+                bf_out[what] = (q, k, v, c, o, int(dead.sum()))
+            n += 1
+            del want
+    lim = ATTN_TOL["bfloat16"]["flash"]
+    for what, change in MASK_CONTROLS:
+        q, k, v, c, o, _ = bf_out[what]
+        bad = dict(c)
+        if change == "mask dropped":
+            bad["kv_length"] = None
+        elif change == "offset dropped":
+            bad.pop("q_offset")
+        else:
+            bad["kv_length"] = (c["kv_length"] - 1).clamp_min(0)
+        err = float((o.float() - plain_by_row(q, k, v, **bad)).abs().max())
+        log(f"flash control ({what}, {change}): max abs err {err:.4e} "
+            f"against the kernel (must exceed {lim})")
+        if not err > lim:
+            raise AssertionError(f"flash control {what}, {change} passed "
+                                 f"the bound: {err:.3e}")
+    for what, arch, case in MASK_CASES:
+        q, k, v, c, _, n_dead = bf_out[what]
+        B, Hq, Sq, D = q.shape
+        Hkv, Skv = k.shape[1], k.shape[2]
+        live = live_mask(Sq, Skv, True, c["window"],
+                         c.get("q_offset", Skv - Sq), c["kv_length"],
+                         device)                           # (B, Sq, Skv)
+        pairs = Hq * int(live.sum())
+        keys = int(live.any(dim=1).sum())          # keys a row must read
+        nbytes = 2 * (2 * B * Hq * Sq * D + 2 * keys * Hkv * D)
+        mask = live[:, None]
+        attention_numbers(
+            "flash_attention", lambda: flash_attention_cuda(q, k, v, **c),
+            lambda: plain_by_row(q, k, v, **c),
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True),
+            nbytes, 4 * D * pairs, 10, card,
+            f"{what}: B={B}, Sq={Sq}, Skv={Skv}, q_offset="
+            f"{c.get('q_offset', Skv - Sq)}, lengths "
+            f"{c['kv_length'].tolist()}, window {c['window']}, softcap "
+            f"{c['softcap']}, {arch}'s Hq={Hq}, Hkv={Hkv}, D={D}, bf16, "
+            f"causal; {n_dead} queries with no live key; SDPA with a "
+            f"boolean mask" + (", no softcap" if c["softcap"] else ""))
+    del bf_out
+    return n
+
+
 # ---------------------------------------------------------------------------
 def queued_device_ms(fn, n: int, before=None) -> float:
     """Device time per call of ``n`` calls of ``fn`` (each after
@@ -2784,8 +2974,9 @@ def check_attention_grads(device, cfg, seed: int, card: str) -> float:
     """``FlashAttention`` at the training shape against the plain version
     in float32: its output (the kernel's forward) within the bf16 flash
     limit, then dq, dk, dv (the PyTorch backward, which recomputes the
-    output itself) against autograd through the plain version → the
-    forward's max abs error."""
+    output itself) against autograd through the plain version; then the
+    same with the rows padded to TRAIN_PADDED lengths (training through a
+    padded cache) → the forwards' max abs error."""
     import torch
 
     from repro_torch.kernels.flash_attention import attention_ref
@@ -2802,29 +2993,37 @@ def check_attention_grads(device, cfg, seed: int, card: str) -> float:
     k = randn(B, S, Hkv, D).to(bf).transpose(1, 2).requires_grad_()
     v = randn(B, S, Hkv, D).to(bf).transpose(1, 2).requires_grad_()
     do = randn(B, Hq, S, D).to(bf)
-    out = FlashAttention.apply(q, k, v, True, None, None, None)
-    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
-    ref_out = attention_ref(*ref_in)
-    fwd_err = float((out.detach().float() - ref_out.detach()).abs().max())
-    fwd_lim = ATTN_TOL["bfloat16"]["flash"]
-    log(f"attention forward at B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, "
-        f"bf16, causal on {card}: FlashAttention (the flash kernel) vs the "
-        f"plain version in float32: max abs err {fwd_err:.4e} (limit "
-        f"{fwd_lim})")
-    if not fwd_err <= fwd_lim:
-        raise AssertionError(f"flash_attention at the training shape: max "
-                             f"abs err {fwd_err:.3e} (limit {fwd_lim})")
-    got = torch.autograd.grad(out, (q, k, v), do)
-    want = torch.autograd.grad(ref_out, ref_in, do.float())
-    errs = {}
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        errs[name] = float((g.float() - w).abs().max() / w.abs().max())
-    log(f"attention gradients at B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, "
-        f"bf16, causal on {card}: FlashAttention's PyTorch backward vs "
-        f"autograd through the plain version in float32: max err / max "
-        f"|grad| {json.dumps(errs)} (limit {GRAD_TOL})")
-    if not max(errs.values()) <= GRAD_TOL:
-        raise AssertionError(f"attention gradients off: {errs}")
+    padded = torch.tensor(TRAIN_PADDED, dtype=torch.int32, device=device)
+    fwd_err = 0.0
+    for lens in (None, padded):
+        what = (f"B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, bf16, causal"
+                + ("" if lens is None else f", rows padded to lengths "
+                   f"{TRAIN_PADDED}"))
+        out = FlashAttention.apply(q, k, v, True, None, None, None, None,
+                                   lens)
+        ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        ref_out = attention_ref(*ref_in, kv_length=lens)
+        err = float((out.detach().float() - ref_out.detach()).abs().max())
+        fwd_err = max(fwd_err, err)
+        fwd_lim = ATTN_TOL["bfloat16"]["flash"]
+        log(f"attention forward at {what} on {card}: FlashAttention (the "
+            f"flash kernel) vs the plain version in float32: max abs err "
+            f"{err:.4e} (limit {fwd_lim})")
+        if not err <= fwd_lim:
+            raise AssertionError(f"flash_attention at {what}: max abs err "
+                                 f"{err:.3e} (limit {fwd_lim})")
+        got = torch.autograd.grad(out, (q, k, v), do)
+        want = torch.autograd.grad(ref_out, ref_in, do.float())
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = float((g.float() - w).abs().max() / w.abs().max())
+        log(f"attention gradients at {what} on {card}: FlashAttention's "
+            f"PyTorch backward vs autograd through the plain version in "
+            f"float32: max err / max |grad| {json.dumps(errs)} (limit "
+            f"{GRAD_TOL})")
+        if not max(errs.values()) <= GRAD_TOL:
+            raise AssertionError(f"attention gradients off at {what}: "
+                                 f"{errs}")
     return fwd_err
 
 
@@ -2952,8 +3151,9 @@ def train_phase(args, device, card: str) -> int:
               res.log if e["event"] != "straggler"]
     want_events = [("checkpoint", TRAIN_CKPT_EVERY),
                    ("failure", TRAIN_KILL_AFTER + 1),
-                   ("restart", TRAIN_CKPT_EVERY),
-                   ("checkpoint", 2 * TRAIN_CKPT_EVERY)]
+                   ("restart", TRAIN_CKPT_EVERY)] + [
+        ("checkpoint", s) for s in range(2 * TRAIN_CKPT_EVERY,
+                                         TRAIN_STEPS + 1, TRAIN_CKPT_EVERY)]
     replayed = TRAIN_KILL_AFTER + 1 - TRAIN_CKPT_EVERY
     if events != want_events or calls != TRAIN_STEPS + replayed:
         raise AssertionError(f"supervisor events {res.log}, {calls} step "
@@ -3744,7 +3944,33 @@ def dry_record_line(rec: dict) -> str:
             f"in {rec['trace_s']} s")
 
 
-def dryrun_phase(args, device, card: str) -> None:
+@contextlib.contextmanager
+def dry_row_started():
+    """Start the DRY_ARCH row of the dry run's CLI at both production
+    meshes on this host's CPU, the card hidden, and yield ``(process, its
+    jsonl, its log, start time)``; phase 17 waits for it, and leaving the
+    block kills it if it still runs."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    out = os.path.join(work, "dryrun.jsonl")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = None
+    try:
+        with open(os.path.join(work, "dryrun.log"), "w+") as logf:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 DRY_ARCH, "--mesh", "both", "--out", out], cwd=HERE,
+                env=env, stdout=logf, stderr=subprocess.STDOUT)
+            yield proc, out, logf, t0
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def dryrun_phase(args, device, card: str, row) -> None:
     """Phase 17: the dry run (``repro_torch.launch.dryrun``) traces on
     ``meta``, on a 1x1 mesh, phase 14's training step (qwen3-14b at
     TRAIN_LAYERS, TRAIN_BATCH x TRAIN_SEQ, launch.train's TrainConfig) and
@@ -3755,7 +3981,8 @@ def dryrun_phase(args, device, card: str) -> None:
     counted training dot FLOPs must reach the model FLOPs of
     :func:`train_model_flops`; then the DRY_ARCH row at both production
     meshes (the CLI a user runs, on this host's CPU) must give 6 ok and 2
-    skipped records."""
+    skipped records (``row``: the CLI, started by
+    :func:`dry_row_started` beside phases 15 and 16)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3852,25 +4079,19 @@ def dryrun_phase(args, device, card: str) -> None:
     torch.cuda.empty_cache()
 
     # the production row, traced on this host's CPU with the card hidden
-    work = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    proc, out, logf, t0 = row
     try:
-        out = os.path.join(work, "dryrun.jsonl")
-        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
-                   CUDA_VISIBLE_DEVICES="")
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             DRY_ARCH, "--mesh", "both", "--out", out], cwd=HERE, env=env,
-            capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if run.returncode != 0:
-            raise AssertionError(f"the dry run's {DRY_ARCH} row failed "
-                                 f"({run.returncode}): "
-                                 f"{(run.stdout + run.stderr)[-3000:]}")
-        with open(out) as f:
-            rows = [json.loads(line) for line in f]
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        logf.seek(0)
+        raise AssertionError(f"the dry run's {DRY_ARCH} row failed ({rc}): "
+                             f"{logf.read()[-3000:]}")
+    with open(out) as f:
+        rows = [json.loads(line) for line in f]
     status = sorted(r["status"] for r in rows)
     for r in rows:
         if r["status"] == "ok":
@@ -3881,9 +4102,107 @@ def dryrun_phase(args, device, card: str) -> None:
                 f"{r['status']} ({r.get('reason', r.get('error'))})")
     log(f"dry run row {DRY_ARCH} --mesh both on this host's CPU: "
         f"{len(rows)} records ({status.count('ok')} ok, "
-        f"{status.count('skipped')} skipped) in {wall:.1f} s")
+        f"{status.count('skipped')} skipped) in {wall:.1f} s (started "
+        f"before phase 15, run beside phases 15 and 16)")
     if status != ["ok"] * 6 + ["skipped"] * 2:
         raise AssertionError(f"the dry run's {DRY_ARCH} row gave {status}")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the port's examples and the JAX package's deprecated entry points
+# ---------------------------------------------------------------------------
+def check_shims(device, work: str) -> None:
+    """The deprecated entry points on the card: an index over SHIM_KEYS
+    keys below 2^31 (so its resident prefix packs into the kernel's int32
+    planes) served through ``IndexService(path, use_device=True,
+    resident_layers=2)`` (one fused-descent launch a batch) and through
+    ``Index.serve(use_device=True)``, and read by ``lookup_file``: each
+    equal to the numpy facade's ranges; ``load_index`` equal to
+    ``Index.open(path, data=D).design``."""
+    import warnings
+
+    from repro_torch.api import Index, TuneSpec
+    from repro_torch.core import KeyPositions, load_index
+    from repro_torch.core.lookup import lookup_file
+    from repro_torch.kernels.fused_descent import kernel as FK
+    from repro_torch.serve import IndexService
+    from repro_torch.serve.index_service import demo_serving_design
+    rng = np.random.default_rng(18)
+    keys = np.unique(rng.integers(1, 2**31 - 2, SHIM_KEYS).astype(np.uint64))
+    D = KeyPositions.fixed_record(keys, RECORD_BYTES)
+    path = os.path.join(work, "shims.air")
+    Index.from_design(demo_serving_design(D), spec=TuneSpec(page_bytes=4096),
+                      profile="azure_ssd", device=device).save(path)
+    q = rng.choice(keys, BATCH)
+    with Index.open(path, device=device).serve(backend="numpy") as svc:
+        want = svc.lookup(q)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", DeprecationWarning)
+        got_file = lookup_file(path, None, q)
+        FK.reset_launches()
+        with IndexService(path, use_device=True, resident_layers=2) as svc:
+            got_svc = svc.lookup(q)
+            dev_batches = svc.stats.device_batches
+        launched = FK.launches()
+        with Index.open(path, device=device).serve(use_device=True) as svc:
+            got_serve = svc.lookup(q)
+        design = load_index(path, D)
+    for what, got in (("lookup_file", got_file),
+                      ("IndexService(use_device=True)", got_svc),
+                      ("Index.serve(use_device=True)", got_serve)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what} on the card differs from the "
+                                 f"numpy facade's ranges")
+    if dev_batches != 1 or launched != 1:
+        raise AssertionError(f"the legacy IndexService did not descend on "
+                             f"the card: {dev_batches} device batches, "
+                             f"{launched} launches")
+    if design.describe() != Index.open(path, data=D).design.describe():
+        raise AssertionError("load_index differs from the facade's design")
+    log(f"shims on the card: lookup_file, IndexService(use_device=True, "
+        f"resident_layers=2) ({launched} fused_descent launch) and "
+        f"Index.serve(use_device=True) equal the numpy facade's ranges over "
+        f"{BATCH} queries of {len(keys)} keys; load_index equals "
+        f"Index.open(path, data=D).design ({design.describe()}); "
+        f"{len(caught)} deprecation warnings")
+
+
+def examples_phase(args, device, card: str) -> dict:
+    """The port's seven examples (``examples/torch``), each a process of
+    its own on the card at its defaults, one after another so that each
+    wall is that example's alone, each run through EXAMPLE_RUNNER so it
+    reports its kernel launches; a nonzero exit fails the phase.  Then the
+    deprecated entry points on the card (:func:`check_shims`) →
+    {example: launches}."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                   TMPDIR=work)
+        out = {}
+        for name in EXAMPLES:
+            t0 = time.perf_counter()
+            # run() kills the example at its timeout, so none outlives it
+            proc = subprocess.run(
+                [sys.executable, "-c", EXAMPLE_RUNNER,
+                 os.path.join("examples", "torch", f"{name}.py")],
+                cwd=HERE, env=env, capture_output=True, text=True,
+                timeout=EXAMPLE_TIMEOUT)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"example {name} failed "
+                                     f"({proc.returncode}): "
+                                     f"{(proc.stdout + proc.stderr)[-3000:]}")
+            lines = proc.stdout.splitlines()
+            line = next(ln for ln in lines if ln.startswith("LAUNCHES "))
+            out[name] = {k: v for k, v in json.loads(line[9:]).items() if v}
+            last = [ln for ln in lines if not ln.startswith("LAUNCHES ")][-1]
+            log(f"example {name} on {card}: exit 0 in {wall:.1f} s (alone, "
+                f"the process's start included); kernel launches "
+                f"{json.dumps(out[name])}; last line {last!r}")
+        check_shims(device, work)
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -3939,18 +4258,22 @@ def main(argv=None) -> int:
     flash["max_abs_err"] = max(flash["max_abs_err"], fwd_err)
     gc.collect()                        # phase 14's model, freed first
     torch.cuda.empty_cache()
-    families = phase(15, family_phase, args, device, card)
-    for entry in attention:
-        entry["launches"] += families[entry["name"]]
-    gc.collect()                        # phase 15's models, freed first
-    torch.cuda.empty_cache()
-    decode = next(e for e in attention if e["name"] == "decode_attention")
-    launches, shard_err = phase(16, dist_phase, args, device, card)
-    decode["launches"] += launches
-    decode["max_abs_err"] = max(decode["max_abs_err"], shard_err)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase(17, dryrun_phase, args, device, card)
+    # phase 17's CPU row runs on the host beside phases 15 and 16
+    with dry_row_started() as row:
+        families = phase(15, family_phase, args, device, card)
+        for entry in attention:
+            entry["launches"] += families[entry["name"]]
+        gc.collect()                    # phase 15's models, freed first
+        torch.cuda.empty_cache()
+        decode = next(e for e in attention
+                      if e["name"] == "decode_attention")
+        launches, shard_err = phase(16, dist_phase, args, device, card)
+        decode["launches"] += launches
+        decode["max_abs_err"] = max(decode["max_abs_err"], shard_err)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(17, dryrun_phase, args, device, card, row)
+    phase(18, examples_phase, args, device, card)
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s (limit "
         f"1200 s, the kernels' build included)")
     print(json.dumps({"kernels": [fused, scores, *lookups, *attention]}))

@@ -1,8 +1,10 @@
 """shim-discipline (AIR005): internal code never uses its own shims.
 
-The JAX package's deprecated entry points and legacy ``IndexService``
-keyword arguments are not ported: the port's callers use the facade and
-``ServeSpec``.  This rule keeps it so at lint time.  Flags:
+``repro_torch.core.deprecation`` draws a hard line: the deprecated entry
+points carried over from the JAX package warn outside callers and
+*assert* when called from inside ``repro_torch``.  That assertion fires
+only on the path somebody happens to run; this rule catches the
+regression at lint time instead.  Flags:
 
 * calls to the deprecated entry points (``load_index``,
   ``lookup_file``) anywhere in scanned code,
@@ -13,7 +15,8 @@ keyword arguments are not ported: the port's callers use the facade and
   (``cache_bytes=``, ``use_device=``, ...) — internal code must build a
   ``ServeSpec`` and pass ``spec=``.
 
-Only *references* are findings.
+Definition sites are untouched (the shims keep existing for outside
+callers); only *references* are findings.
 """
 from __future__ import annotations
 
@@ -65,8 +68,8 @@ class ShimDisciplineRule(Rule):
                     yield self.finding(
                         path, node,
                         f"call to deprecated entry point '{name}' — use "
-                        f"{DEPRECATED_ENTRY_POINTS[name]} (the port does "
-                        f"not carry the shim)")
+                        f"{DEPRECATED_ENTRY_POINTS[name]} (the shim hard-"
+                        f"asserts when called from inside repro_torch)")
                 elif name in _SERVICE_NAMES:
                     legacy = [kw.arg for kw in node.keywords
                               if kw.arg in LEGACY_KWARGS]

@@ -323,7 +323,8 @@ class Index:
         are ServeSpec field replacements — e.g.
         ``idx.serve(profile="azure_hdd", persist_stats=True)``.
         ``device`` (default: this Index's) is where the resident prefix
-        runs."""
+        runs.  ``use_device=`` is the JAX package's deprecated spelling
+        of ``backend=``: True is ``"cuda"``, False ``"numpy"``."""
         if self._path is None:
             raise ValueError(
                 "serve() needs an on-disk index: call save(path) first "
@@ -334,6 +335,14 @@ class Index:
             # the tuned-for tier; an untuned handle gets the engine default
             profile = self._profile if self._profile is not None \
                 else "azure_ssd"
+        if "use_device" in overrides:
+            from repro_torch.core.deprecation import warn_deprecated
+            warn_deprecated(
+                "repro_torch.serve.Index.serve(use_device=...) is "
+                "deprecated; pass backend='cuda' (a ServeSpec field) "
+                "instead", stacklevel=3, once=True)
+            overrides["backend"] = ("cuda" if overrides.pop("use_device")
+                                    else "numpy")
         base = spec if spec is not None else self._serve_spec
         if overrides:
             unknown = set(overrides) - _SERVE_FIELDS

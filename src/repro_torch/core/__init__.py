@@ -3,7 +3,9 @@ builders and their registries, storage profiles, the Eq. (6) cost, the
 AirTune search strategies with the fused sweep engine, the baselines, the
 batched float64 Alg. 1 (``lookup_batch``) and the on-disk index format.  Host-side numpy, bit-identical to the JAX
 package's ``repro.core`` on what it covers; the sweep engine ranks
-candidates on the card by default (``score_backend="cuda"``)."""
+candidates on the card by default (``score_backend="cuda"``).
+``load_index`` and ``lookup.lookup_file`` remain as deprecation shims onto
+the ``repro_torch.api`` facade, as in the JAX package."""
 from .airtune import (SearchStrategy, TuneResult, TuneStats, airtune,
                       beam_search, brute_force)
 from .builders import (DEFAULT_FAMILIES, LayerBuilder, build_eband,
@@ -30,7 +32,8 @@ from .registry import (BUILDER_FAMILIES, MULTI_LAM_FAMILIES,
 from .lookup import (LookupResult, last_mile_search, lookup_batch,
                      verify_lookup)
 from .serialize import (IndexFileMeta, LayerMeta, SerializedIndex,
-                        lookup_serialized, materialize_design, page_span,
+                        load_index, lookup_serialized, materialize_design,
+                        page_span,
                         parse_meta, read_meta_path, record_aligned_range,
                         write_index)
 from .storage import (PROFILES, AffineProfile, AffineUniformProfile,

@@ -9,7 +9,8 @@ provides:
     descent (re-exported from :mod:`repro_torch.core.descent`);
   * :func:`lookup_batch` — in-memory traversal returning predicted data
     ranges + the modeled per-query latency (Eq. 5 terms);
-  * :func:`verify_lookup` and :func:`last_mile_search`.
+  * :func:`verify_lookup` and :func:`last_mile_search`;
+  * :func:`lookup_file` — deprecation shim onto the facade.
 
 Bit-identical to the JAX package's ``repro.core.lookup``.
 """
@@ -84,3 +85,17 @@ def last_mile_search(keys_in_range: np.ndarray, query: int) -> int:
     """Binary search within a fetched data range (Alg. 1 line 3)."""
     i = int(np.searchsorted(keys_in_range, np.uint64(query), side="right")) - 1
     return max(i, 0)
+
+
+def lookup_file(path: str, design_meta, queries: np.ndarray):
+    """Deprecated shim: use ``repro_torch.api.Index.open(path).lookup(
+    queries)``, the identical :class:`repro_torch.core.serialize.
+    SerializedIndex` walk, so results are bit-identical.  ``design_meta``
+    was always unused and is ignored."""
+    from .deprecation import warn_deprecated
+    warn_deprecated(
+        "repro_torch.core.lookup.lookup_file(path, meta, queries) is "
+        "deprecated; use repro_torch.api.Index.open(path).lookup(queries)")
+    from repro_torch.api import Index
+    with Index.open(path) as idx:
+        return idx.lookup(queries)

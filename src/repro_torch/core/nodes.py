@@ -73,6 +73,17 @@ class StepLayer:
         lo, hi = self.predict(queries)
         return (hi - lo).astype(np.float64)
 
+    def piece_widths(self) -> np.ndarray:
+        """|ŷ| of each piece: ``piece_pos[i+1] − piece_pos[i]``, float64."""
+        return np.diff(self.piece_pos).astype(np.float64)
+
+    def validate_against(self, D: KeyPositions) -> None:
+        """Assert Eq. (1) over every key of ``D``: each predicted range
+        contains the key's true range."""
+        lo, hi = self.predict(D.keys)
+        assert np.all(lo <= D.lo) and np.all(hi >= D.hi), \
+            "step layer violates Eq. (1)"
+
 
 @dataclasses.dataclass(frozen=True)
 class BandLayer:
@@ -114,6 +125,12 @@ class BandLayer:
     def widths_at(self, queries: np.ndarray) -> np.ndarray:
         lo, hi = self.predict(queries)
         return (hi - lo).astype(np.float64)
+
+    def validate_against(self, D: KeyPositions) -> None:
+        """Assert Eq. (1) over every key of ``D`` (the clamped band)."""
+        lo, hi = self.predict(D.keys)
+        assert np.all(lo <= D.lo) and np.all(hi >= D.hi), \
+            "band layer violates Eq. (1)"
 
 
 Layer = StepLayer | BandLayer

@@ -224,6 +224,18 @@ def read_meta_path(path: str) -> IndexFileMeta:
         be.close()
 
 
+def load_index(path: str, data: KeyPositions) -> IndexDesign:
+    """Deprecated shim: use ``repro_torch.api.Index.open(path,
+    data=data).design``, which calls :func:`materialize_design`; the
+    result is bit-identical."""
+    from .deprecation import warn_deprecated
+    warn_deprecated(
+        "repro_torch.core.load_index(path, data) is deprecated; use "
+        "repro_torch.api.Index.open(path, data=data).design")
+    from repro_torch.api import Index
+    return Index.open(path, data=data).design
+
+
 def materialize_design(path: str, data: KeyPositions) -> IndexDesign:
     """Full deserialization (round-trips, re-tuning); real lookups use
     ranges.  Step node grouping and band ``clamp_lo`` are not persisted:

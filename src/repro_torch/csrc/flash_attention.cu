@@ -3,28 +3,28 @@
 //
 // Replaces the TPU kernel `flash_attention_pallas` of the JAX package
 // (src/repro/kernels/flash_attention/kernel.py:90, body `_attn_kernel` at
-// :30).  With q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), group = Hq / Hkv and
-// query i at position q_pos = q_offset + i (the caller passes
-// q_offset = Skv - Sq: queries end-aligned to the keys, prefill with a
-// cache), head h attends to kv head h / group with
+// :30), and the masks the JAX package's jnp blocked_attention adds beyond
+// it (src/repro/models/layers.py:38).  With q (B, Hq, Sq, D), k/v
+// (B, Hkv, Skv, D), group = Hq / Hkv, query i at position
+// q_pos = q_offset + i (any q_offset: Skv - Sq end-aligns the queries, a
+// chunked prefill places them inside a longer cache) and batch row b's
+// length len_b = min(kv_len[b], Skv) (Skv when kv_len is null: a padded
+// cache, prompts of several lengths in one batch), head h attends to kv
+// head h / group with
 //
 //   s = (q * scale) · k;  s = softcap * tanh(s / softcap)  (if softcap);
-//   key live iff k_pos < Skv, and k_pos <= q_pos (causal), and
+//   key live iff k_pos < len_b, and k_pos <= q_pos (causal), and
 //                q_pos - window < k_pos (window);
 //   out = softmax over live keys of s, times v, in float32, stored in
-//   q's type.
+//   q's type; 0 for a query with no live key.
 //
 // The softcap applies before the mask, as at kernel.py:62-70; a masked
-// score is -1e30 and its probability 0.
-//
-// Queries may outnumber keys (Sq > Skv, so q_offset < 0) only with
-// causal = 0 and no window, as the JAX package's jnp blocked_attention
-// allows (whisper's cross-attention over a shorter encoder): every key is
-// then live for every query.  Both kernels derive their key range from
-// q_offset only under causal (the end) or window (the start), and the
-// bf16 kernel's per-tile mask test reads it only there too, so with
-// neither the range is [0, Skv) whatever q_offset is.  The wrapper
-// refuses Sq > Skv under either mask, where a range could come out empty.
+// score is -1e30 and its probability 0, so a query with no live key ends
+// with l = 0 and o = 0 (the jnp reference returns a block_k-dependent
+// mean of zero-padded values there instead).  Each block derives its key
+// range from len_b, from q_offset under causal (the end) and under a
+// window (the start): a short row's blocks stream only its own keys, and
+// a block whose range is empty stores zeros and issues no load.
 //
 // Two kernels, one per storage type.
 //
@@ -128,7 +128,8 @@ flash_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Skv, int group, int q_offset, int causal,
                        int window, float softcap, float scale, Strides qs,
-                       Strides ks, Strides vs, Strides os) {
+                       Strides ks, Strides vs, Strides os,
+                       const int* __restrict__ kv_len) {
     constexpr int VEC = 16 / sizeof(T);
     constexpr int NH = D / 32;           // output float4 columns / thread
     extern __shared__ float4 smem4[];
@@ -164,15 +165,17 @@ flash_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < VEC; ++i) q_t[(c + i) * BQ + r] = f[i] * scale;
     }
 
-    // the key tiles holding a live key for one of the rows
+    // the key tiles holding a live key for one of the rows (none when
+    // the range is empty: the rows then store 0)
+    const int len = kv_len ? max(0, min(Skv, kv_len[b])) : Skv;
     const int qpos_lo = q_offset + q0;
     const int qpos_hi = q_offset + q0 + rows - 1;
-    int k_end = Skv;
+    int k_end = len;
     if (causal) k_end = min(k_end, qpos_hi + 1);
     int k_begin = 0;
     if (window > 0) k_begin = max(0, qpos_lo - window + 1);
     const int kt_begin = k_begin / BK;
-    const int kt_end = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+    const int kt_end = k_end > k_begin ? (k_end + BK - 1) / BK : 0;
 
     const int rg = t >> 3, cg = t & 7;   // rows rg*4.., columns of cg
     float m_r[4], l_r[4], acc[4][4 * NH];
@@ -239,7 +242,7 @@ flash_attention_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                               : 32 + cg * 4 + jj - 4);
                 float x = s[i][jj];
                 if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-                bool live = kpos < Skv;
+                bool live = kpos < len;
                 if (causal) live = live && kpos <= qpos;
                 if (window > 0) live = live && kpos > qpos - window;
                 s[i][jj] = live ? x : NEG_INF;
@@ -532,7 +535,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tv,
                              bf16* __restrict__ o, int Sq, int Skv, int group,
                              int q_offset, int causal, int window,
-                             float softcap, float scale, Strides os) {
+                             float softcap, float scale, Strides os,
+                             const int* __restrict__ kv_len) {
     using L = WgLayout<D>;
     constexpr int SW = L::SW, SWE = L::SWE, NATOM = L::NATOM;
     constexpr int NS = WG_BK / 2;          // S accumulators a thread
@@ -555,12 +559,22 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int rows = min(WG_BQ, Sq - q0);
 
     // the key tiles holding a live key for one of the rows
+    const int len = kv_len ? max(0, min(Skv, kv_len[b])) : Skv;
     const int qpos_lo = q_offset + q0;
     const int qpos_hi = q_offset + q0 + rows - 1;
-    int k_end = Skv;
+    int k_end = len;
     if (causal) k_end = min(k_end, qpos_hi + 1);
     int k_begin = 0;
     if (window > 0) k_begin = max(0, qpos_lo - window + 1);
+    const long long ob = (long long)b * os.b + (long long)h * os.h;
+    if (k_end <= k_begin) {            // no row has a live key: store 0
+        for (int i = t; i < rows * (D / 8); i += WG_THREADS) {
+            const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+            *reinterpret_cast<uint4*>(o + ob + (long long)(q0 + r) * os.s
+                                      + c) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        return;
+    }
     const int kt_begin = k_begin / WG_BK;
     const int n_tiles = (k_end + WG_BK - 1) / WG_BK - kt_begin;
 
@@ -657,7 +671,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // order), the new row max, P into pa, l and O rescaled
     auto softmax = [&](int i) {
         const int k0 = (kt_begin + i) * WG_BK;
-        const bool masked = k0 + WG_BK > Skv
+        const bool masked = k0 + WG_BK > len
                             || (causal && k0 + WG_BK - 1 > wg_lo)
                             || (window > 0 && k0 <= wg_hi - window);
         float mn0, mn1;
@@ -705,7 +719,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         x1 *= scale2;
                     }
                     const int kp = k0 + 8 * n + c2 + j;
-                    bool live0 = kp < Skv, live1 = kp < Skv;
+                    bool live0 = kp < len, live1 = kp < len;
                     if (causal) {
                         live0 = live0 && kp <= qp0;
                         live1 = live1 && kp <= qp1;
@@ -822,7 +836,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
     const int row0 = q0 + g * 64 + r0, row1 = row0 + 8;
-    const long long ob = (long long)b * os.b + (long long)h * os.h;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
         const int col = 8 * n + c2;
@@ -894,7 +907,7 @@ static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                         int B, int Hq, int Sq, int Skv, int Hkv, int q_offset,
                         int causal, int window, float softcap, float scale,
                         Strides qs, Strides ks, Strides vs, Strides os,
-                        cudaStream_t stream) {
+                        const int* kv_len, cudaStream_t stream) {
     CUtensorMap tq, tk, tv;
     int err = encode_map<D>(&tq, q, Sq, Hq, B, qs, WG_BQ);
     if (err == 0) err = encode_map<D>(&tk, k, Skv, Hkv, B, ks, WG_BK);
@@ -908,7 +921,7 @@ static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     const dim3 grid((Sq + WG_BQ - 1) / WG_BQ, Hq, B);
     kern<<<grid, WG_THREADS, smem, stream>>>(
         tq, tk, tv, (bf16*)o, Sq, Skv, Hq / Hkv, q_offset, causal, window,
-        softcap, scale, os);
+        softcap, scale, os, kv_len);
     return (int)cudaGetLastError();
 }
 
@@ -920,7 +933,7 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o,
                       int B, int Hq, int Sq, int Skv, int Hkv, int q_offset,
                       int causal, int window, float softcap, float scale,
                       Strides qs, Strides ks, Strides vs, Strides os,
-                      cudaStream_t stream) {
+                      const int* kv_len, cudaStream_t stream) {
     auto kern = flash_attention_f32_kernel<float, D>;
     const int smem = FlashSmem<D>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
@@ -929,7 +942,8 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o,
     const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
     kern<<<grid, THREADS, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
-        Hq / Hkv, q_offset, causal, window, softcap, scale, qs, ks, vs, os);
+        Hq / Hkv, q_offset, causal, window, softcap, scale, qs, ks, vs, os,
+        kv_len);
     return (int)cudaGetLastError();
 }
 
@@ -938,31 +952,33 @@ static int launch_typed(int bf16, const void* q, const void* k, const void* v,
                         void* o, int B, int Hq, int Sq, int Skv, int Hkv,
                         int q_offset, int causal, int window, float softcap,
                         float scale, Strides qs, Strides ks, Strides vs,
-                        Strides os, cudaStream_t stream) {
+                        Strides os, const int* kv_len, cudaStream_t stream) {
     if (bf16)
         return launch_wgmma<D>(q, k, v, o, B, Hq, Sq, Skv, Hkv, q_offset,
                                causal, window, softcap, scale, qs, ks, vs, os,
-                               stream);
+                               kv_len, stream);
     return launch_f32<D>(q, k, v, o, B, Hq, Sq, Skv, Hkv, q_offset, causal,
-                         window, softcap, scale, qs, ks, vs, os, stream);
+                         window, softcap, scale, qs, ks, vs, os, kv_len,
+                         stream);
 }
 
 // C entry point, bound with ctypes.  All pointers are device pointers on
 // the stream's device; the wrapper (kernels/flash_attention/kernel.py) has
 // checked shapes, one type for q, k, v and o (bf16 = 1 for bfloat16, 0 for
 // float32), a contiguous head dimension, 16-byte aligned rows,
-// D in {32, 64, 128}, Hq % Hkv == 0, and 1 <= Sq <= Skv, or Sq > Skv >= 1
-// with causal = 0 and no window (q_offset < 0).  window <= 0 and
-// softcap <= 0 mean none.  Strides are in elements, (batch, head,
-// sequence) for q, k, v and o in turn.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue where a tensor map cannot be encoded.
+// D in {32, 64, 128}, Hq % Hkv == 0, Sq >= 1 and Skv >= 1; q_offset is any
+// placement of the queries.  window <= 0 and softcap <= 0 mean none.
+// Strides are in elements, (batch, head, sequence) for q, k, v and o in
+// turn.  kv_len is null or B int32 row lengths on the device.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue where a tensor map cannot
+// be encoded.
 extern "C" int flash_attention_launch(
         const void* q, const void* k, const void* v, void* o, int B, int Hq,
         int Sq, int Skv, int Hkv, int D, int q_offset, int causal, int window,
         float softcap, float scale, int bf16, long long qsb, long long qsh,
         long long qss, long long ksb, long long ksh, long long kss,
         long long vsb, long long vsh, long long vss, long long osb,
-        long long osh, long long oss, void* stream) {
+        long long osh, long long oss, const int* kv_len, void* stream) {
     const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
         os{osb, osh, oss};
     cudaStream_t st = (cudaStream_t)stream;
@@ -970,15 +986,15 @@ extern "C" int flash_attention_launch(
     case 32:
         return launch_typed<32>(bf16, q, k, v, o, B, Hq, Sq, Skv, Hkv,
                                 q_offset, causal, window, softcap, scale, qs,
-                                ks, vs, os, st);
+                                ks, vs, os, kv_len, st);
     case 64:
         return launch_typed<64>(bf16, q, k, v, o, B, Hq, Sq, Skv, Hkv,
                                 q_offset, causal, window, softcap, scale, qs,
-                                ks, vs, os, st);
+                                ks, vs, os, kv_len, st);
     case 128:
         return launch_typed<128>(bf16, q, k, v, o, B, Hq, Sq, Skv, Hkv,
                                  q_offset, causal, window, softcap, scale, qs,
-                                 ks, vs, os, st);
+                                 ks, vs, os, kv_len, st);
     default:
         return (int)cudaErrorInvalidValue;
     }

@@ -25,7 +25,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 LIB = CudaLibrary(
     "flash_attention",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-     *([_L] * 12), _P])
+     *([_L] * 12), _P, _P])
 launches = LIB.launches
 reset_launches = LIB.reset_launches
 build = LIB.build
@@ -61,15 +61,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          softcap: float | None = None,
                          scale: float | None = None,
+                         q_offset: int | None = None,
+                         kv_length: torch.Tensor | None = None,
                          out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) of one
     type (float32 or bfloat16) on one CUDA device, each with a contiguous
-    last dimension (other strides are free) and 1 ≤ Sq ≤ Skv, or Sq > Skv
-    ≥ 1 with neither ``causal`` nor a ``window`` → (B, Hq, Sq, D) in q's
-    type, queries end-aligned to the keys.  ``out`` (same shape
-    and type, last dimension contiguous) receives the result if given.
-    :func:`kernel_path` names the kernel the type takes.  Raises on
-    anything the kernel does not take."""
+    last dimension (other strides are free) → (B, Hq, Sq, D) in q's type.
+    Query i sits at ``q_offset + i`` (default ``Skv − Sq``: end-aligned,
+    which needs 1 ≤ Sq ≤ Skv, or Sq > Skv ≥ 1 with neither ``causal`` nor
+    a ``window``).  ``kv_length`` ((B,) contiguous int32 on q's device)
+    limits batch row b's keys to ``[0, kv_length[b])``, and the kernel
+    then reads only those.  A query with no live key gets 0.  ``out``
+    (same shape and type, last dimension contiguous) receives the result
+    if given.  :func:`kernel_path` names the kernel the type takes.
+    Raises on anything the kernel does not take."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs a CUDA tensor, "
@@ -85,10 +90,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"not pair")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} (one of {HEAD_DIMS}) unsupported")
-    check_lengths(Sq, Skv, causal, window)
+    check_lengths(Sq, Skv, causal, window, q_offset)
+    offset = Skv - Sq if q_offset is None else int(q_offset)
+    if abs(offset) >= 2**30:
+        raise ValueError(f"q_offset {offset} out of range")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if kv_length is not None and (
+            kv_length.device != dev or kv_length.dtype != torch.int32
+            or tuple(kv_length.shape) != (B,)
+            or not kv_length.is_contiguous()):
+        raise ValueError(f"kv_length must be a contiguous ({B},) int32 "
+                         f"tensor on {dev}")
     if out is None:
         out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=dev)
     elif out.shape != q.shape or out.dtype != q.dtype:
@@ -101,8 +115,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"head dimension and 16-byte aligned rows")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     LIB.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), B, Hq, Sq, Skv, Hkv, D, Skv - Sq,
+               out.data_ptr(), B, Hq, Sq, Skv, Hkv, D, offset,
                int(bool(causal)), int(window or 0), float(softcap or 0.0),
                scale, _DTYPES[q.dtype], *q.stride()[:3], *k.stride()[:3],
-               *v.stride()[:3], *out.stride()[:3])
+               *v.stride()[:3], *out.stride()[:3],
+               None if kv_length is None else kv_length.data_ptr())
     return out

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import live_mask
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -78,51 +79,70 @@ def _attention_out(q: torch.Tensor) -> torch.Tensor:
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
                       softcap: float | None = None,
+                      q_offset: int | None = None,
+                      kv_length: torch.Tensor | None = None,
+                      block_k: int = BLOCK_K,
                       scale: float | None = None) -> torch.Tensor:
     """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) → (B, Hq, Sq, D) in q's
-    type (a view of a (B, Sq, Hq, D) buffer), queries end-aligned: the
-    flash-attention kernel on the card, its plain version on the CPU,
-    through :class:`FlashAttention` (which records a graph only where
-    grad is enabled and an input requires it)."""
-    return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    type (a view of a (B, Sq, Hq, D) buffer): the flash-attention kernel
+    on the card, its plain version on the CPU, through
+    :class:`FlashAttention` (which records a graph only where grad is
+    enabled and an input requires it).
+
+    Query i sits at ``q_offset + i`` (default ``Skv − Sq``: end-aligned);
+    ``kv_length`` (B,) limits batch row b's keys to ``[0,
+    kv_length[b])``, attention over a padded cache (a chunked prefill,
+    prompts of several lengths in one batch).  A query with no live key
+    gets 0, where the JAX package returns a ``block_k``-dependent mean of
+    zero-padded values.  ``block_k`` sets the kv blocks of the plain
+    version on the CPU and of the backward; on the card the kernel keeps
+    its own tiles."""
+    return FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                q_offset, kv_length, block_k)
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention with a gradient: the forward is :func:`flash_attention`
     (the kernel on the card, launched once a call, and again when a
     rematerialised block recomputes it); the backward is
-    :func:`attention_grads` in PyTorch ops.  Neither calls the kernel's
-    plain version on the card."""
+    :func:`attention_grads` in PyTorch ops with the forward's masks.
+    Neither calls the kernel's plain version on the card."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale):
+    def forward(ctx, q, k, v, causal, window, softcap, scale,
+                q_offset=None, kv_length=None, block_k=BLOCK_K):
         out = flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap, scale=scale,
-                              out=_attention_out(q))
+                              q_offset=q_offset, kv_length=kv_length,
+                              block_k=block_k, out=_attention_out(q))
         ctx.save_for_backward(q, k, v)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap,
-                        scale=scale)
+                        scale=scale, q_offset=q_offset, kv_length=kv_length,
+                        block_k=block_k)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = attention_grads(q, k, v, do, **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def attention_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor, *, causal: bool = True,
                     window: int | None = None, softcap: float | None = None,
-                    scale: float | None = None, block_k: int = BLOCK_K):
+                    scale: float | None = None, q_offset: int | None = None,
+                    kv_length: torch.Tensor | None = None,
+                    block_k: int = BLOCK_K):
     """→ (dq, dk, dv) of ``blocked_attention`` for the output gradient
     ``do`` (B, Hq, Sq, D), each in its input's type, computed in float32
     over kv blocks of ``block_k``: a first pass recomputes the output and
     each row's log-sum-exp (the online softmax of the forward), a second
     the probabilities of each block and from them the gradients.  A query
     head's group shares its kv head, so dk and dv sum over the group; the
-    causal and window masks and the tanh softcap are those of the
-    forward."""
+    causal, window and length masks, the queries' offset and the tanh
+    softcap are those of the forward.  A query with no live key has the
+    output 0 and passes no gradient."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
     G = Hq // Hkv
@@ -131,16 +151,12 @@ def attention_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # query head h reads kv head h // G: rows (g, i) of one kv head
     qf = (q.float() * scale).reshape(B, Hkv, G * Sq, D)
     dof = do.float().reshape(B, Hkv, G * Sq, D)
-    q_pos = (Skv - Sq + torch.arange(Sq, device=dev)).repeat(G)
-    blocks = []
-    for j0 in range(0, Skv, block_k):
-        k_pos = torch.arange(j0, min(j0 + block_k, Skv), device=dev)
-        live = torch.ones((G * Sq, len(k_pos)), dtype=torch.bool, device=dev)
-        if causal:
-            live &= k_pos[None, :] <= q_pos[:, None]
-        if window is not None:
-            live &= k_pos[None, :] > q_pos[:, None] - window
-        blocks.append((slice(j0, j0 + len(k_pos)), live))
+    offset = Skv - Sq if q_offset is None else int(q_offset)
+    # (B|1, 1, G·Sq, Skv): the forward's mask for the rows (g, i)
+    live = live_mask(Sq, Skv, causal, window, offset, kv_length,
+                     dev).repeat(1, G, 1)[:, None]
+    blocks = [(slice(j0, j0 + block_k), live[..., j0:j0 + block_k])
+              for j0 in range(0, Skv, block_k)]
 
     def scores(sl):
         s = qf @ k[:, :, sl].float().transpose(-1, -2)
@@ -155,7 +171,7 @@ def attention_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for sl, live in blocks:
         s = scores(sl)[0].masked_fill(~live, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
+        p = torch.exp(s - m_new[..., None]).masked_fill(~live, 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + p @ v[:, :, sl].float()

@@ -473,6 +473,54 @@ def observed_profile_from_stats(stats: ServeStats, backing: StorageProfile,
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
+#: the JAX package's pre-ServeSpec constructor keywords, kept as warn-once
+#: deprecation shims
+_LEGACY_KWARGS = ("cache_bytes", "cache_profile", "page_bytes",
+                  "resident_layers", "use_device", "interpret",
+                  "coalesce_gap", "persist_stats")
+
+
+def _fold_legacy_kwargs(spec, legacy: dict):
+    """Fold pre-spec constructor keywords into a ServeSpec, warning once
+    per keyword (an error for ``repro_torch.*`` callers: the package
+    itself stays on the spec surface).  ``use_device=True`` is the
+    ``"cuda"`` backend, ``False`` the ``"numpy"`` one.  ``spec`` may be
+    None."""
+    from repro_torch.api.spec import ServeSpec   # lazy: api sits above serve
+    from repro_torch.core.deprecation import warn_deprecated
+    changes = {}
+    for name, val in legacy.items():
+        if name not in _LEGACY_KWARGS:
+            raise TypeError(
+                f"IndexService got an unexpected keyword {name!r}")
+        warn_deprecated(
+            f"repro_torch.serve.IndexService({name}=...) is deprecated; "
+            f"pass spec=repro_torch.api.ServeSpec(...) instead",
+            stacklevel=4, once=True)
+        if name == "use_device":
+            changes["backend"] = "cuda" if val else "numpy"
+        elif name == "cache_bytes":
+            if val is not None:      # None keeps the engine default
+                changes["cache_bytes"] = tuple(val)
+        elif name == "page_bytes":
+            changes["page_bytes"] = int(val or 0)
+        elif name == "cache_profile":
+            if val is None or isinstance(val, str):
+                changes["cache_profile"] = val
+            else:                    # a profile object: map back to its name
+                pname = getattr(val, "name", None)
+                if pname not in PROFILES:
+                    raise TypeError(
+                        "cache_profile objects are no longer accepted; "
+                        "pass a PROFILES name (or None) via ServeSpec")
+                changes["cache_profile"] = pname
+        else:
+            changes[name] = val
+    if not changes:
+        return spec
+    return (spec or ServeSpec()).replace(**changes)
+
+
 class _ServeState:
     """One serving epoch: the storage backend, decoded meta, resident
     prefix (and its device module), block cache, page-CRC table and
@@ -510,17 +558,23 @@ class IndexService:
               ``None`` is the card, and raises when there is none; pass
               ``"cpu"`` to run the plain PyTorch version instead.
 
+    The JAX package's pre-spec keywords (``cache_bytes=``,
+    ``use_device=``, ...) survive as warn-once deprecation shims that fold
+    into the spec; ``repro_torch.*`` callers get an error instead.
+
     All epoch-specific objects live in a :class:`_ServeState`;
     ``meta``/``cache``/``stats``/... are properties onto the current epoch
     so :meth:`swap` can replace them atomically under live traffic.
     """
 
     def __init__(self, path: str, *, profile="azure_ssd", spec=None,
-                 backend_factory=None, device=None):
+                 backend_factory=None, device=None, **legacy):
         self._state = None          # __del__ must be safe mid-__init__
         self._final_state = None
         self._executor = None
         self._prefetch_exc = None
+        if legacy:
+            spec = _fold_legacy_kwargs(spec, legacy)
         self.device = resolve_device(device)
         self.path = path
         self._backend_factory = backend_factory or FileBackend
@@ -712,6 +766,14 @@ class IndexService:
         """The current epoch's storage backend; None after close."""
         st = self._state
         return st.storage if st is not None else None
+
+    @property
+    def fd(self):
+        """The current epoch's file descriptor where the backend has one
+        (:class:`FileBackend` does); None on other backends or after
+        close.  Kept for the JAX package's pre-backend-seam surface."""
+        st = self._state
+        return getattr(st.storage, "fd", None) if st is not None else None
 
     def _pin(self) -> _ServeState:
         """Claim the current epoch for one batch (pair with :meth:`_unpin`)."""

@@ -1,6 +1,7 @@
 """The port stands alone: no import of ``jax`` or ``repro`` anywhere in
-``src/repro_torch`` or ``chip_smoke.py``; every module imports on its own,
-first, with jax blocked; entry points run on the card unless the caller
+``src/repro_torch``, ``chip_smoke.py`` or the port's examples
+(``examples/torch``); every module imports on its own, first, with jax
+blocked; entry points and examples run on the card unless the caller
 names the CPU, and the kernel paths have no fallback (a CPU tensor never
 reaches a kernel, a failed build raises, a missing card raises)."""
 import ast
@@ -32,13 +33,16 @@ LIBS = [K.LIB, CK.LIB, *IK.LIBS, DK.LIB, AK.LIB]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
+EXAMPLES = os.path.join(REPO, "examples", "torch")
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(PORT):
-        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for top in (PORT, EXAMPLES):
+        for root, _, files in os.walk(top):
+            out += [os.path.join(root, f) for f in files
+                    if f.endswith(".py")]
     return sorted(out)
 
 
@@ -103,7 +107,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "repro_torch.serve.attention",
                  "repro_torch.launch.dryrun",
                  "repro_torch.launch.trace_analysis",
-                 "repro_torch.kernels._meta"):
+                 "repro_torch.kernels._meta",
+                 "repro_torch.core.deprecation",
+                 "repro_torch.launch.hlo_analysis"):
         assert name in names
     # each module is imported first, into a process that holds no other
     # module of the port, so an import cycle cannot hide behind the order
@@ -228,6 +234,29 @@ def _run_chip_smoke(cwd):
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                           env=env, capture_output=True, text=True,
                           timeout=300)
+
+
+EXAMPLE_NAMES = ["quickstart", "serve_index", "retune_daemon", "serve_fleet",
+                 "data_pipeline", "serve_llm", "train_llm"]
+
+
+def test_the_port_has_each_example_of_the_reference():
+    assert sorted(f[:-3] for f in os.listdir(EXAMPLES)
+                  if f.endswith(".py")) == sorted(EXAMPLE_NAMES)
+    for name in EXAMPLE_NAMES:
+        assert os.path.exists(os.path.join(REPO, "examples", f"{name}.py"))
+
+
+@pytest.mark.parametrize("name", EXAMPLE_NAMES)
+def test_an_example_raises_without_a_card_unless_given_the_cpu(name):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, f"examples/torch/{name}.py"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
+    assert "==" not in out.stdout          # it did no work first
 
 
 def test_chip_smoke_fails_without_a_card():

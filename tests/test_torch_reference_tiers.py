@@ -124,10 +124,9 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(
 #: have each, with an ``__all__`` (the F5 contract)
 REF_PACKAGES = sorted(_packages_with_all(os.path.join(SRC, "repro")))
 
-#: names the reference exports that the port leaves out by decision: the
-#: legacy shims of ROADMAP.md queue 1 (``load_index`` is the deprecated
-#: ``Index.open(path, data=data).design``)
-NOT_PORTED = {"core": {"load_index"}}
+#: names the reference exports that the port leaves out: none (the legacy
+#: shims, ``load_index`` among them, are ported)
+NOT_PORTED: dict = {}
 #: names only the port exports
 PORT_ONLY = {"core": {"DEFAULT_CACHE_ENTRIES", "LayerCache", "LayerMeta",
                       "SCORE_BACKENDS", "check_disjoint", "convert",
