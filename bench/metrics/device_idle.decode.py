@@ -1,0 +1,6 @@
+"""Share of the traced decode window in which no device operation ran, in %."""
+from benchlib import readers
+
+
+def read(r):
+    return readers.idle_pct(r)
