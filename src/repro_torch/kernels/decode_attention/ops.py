@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.spans import span
+
 from .. import _meta
 from . import kernel, ref
 
@@ -81,25 +83,32 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D); kv_length (B,) int32 (default: S), shared by every new token →
     partial triple (o (B, Hq, Sq, D), m (B, Hq, Sq), l (B, Hq, Sq)),
     float32, without the Sq axis for a 3-D q; ``window`` and ``softcap``
-    as in :func:`decode_attention_folded`."""
-    one = q.dim() == 3
-    if one:
-        q = q[:, :, None]
-    B, Hq, Sq, D = q.shape
-    _, Hkv, S, _ = k.shape
-    if kv_length is None:
-        kv_length = torch.full((B,), S, dtype=torch.int32, device=q.device)
-    rows = Hq // Hkv * Sq
-    # fold kv heads into the batch and (head, token) into the row:
-    # q (B·Hkv, group·Sq, D); k/v (B·Hkv, S, D)
-    qg = q.reshape(B * Hkv, rows, D).contiguous()
-    kg = k.reshape(B * Hkv, S, D).contiguous()
-    vg = v.reshape(B * Hkv, S, D).contiguous()
-    lg = kv_length.to(torch.int32).repeat_interleave(Hkv)
-    o, m, l = decode_attention_folded(qg, kg, vg, lg, scale, window=window,
-                                      softcap=softcap)
-    shape = (B, Hq) if one else (B, Hq, Sq)
-    return o.reshape(*shape, D), m.reshape(shape), l.reshape(shape)
+    as in :func:`decode_attention_folded`.
+
+    The span ``attn.decode`` opens here, where the kernel is launched: a
+    launch made outside any aten op is tied in a profiler trace to the
+    innermost span open around it, so the span starts inside any range a
+    caller opens around this call."""
+    with span("attn.decode"):
+        one = q.dim() == 3
+        if one:
+            q = q[:, :, None]
+        B, Hq, Sq, D = q.shape
+        _, Hkv, S, _ = k.shape
+        if kv_length is None:
+            kv_length = torch.full((B,), S, dtype=torch.int32,
+                                   device=q.device)
+        rows = Hq // Hkv * Sq
+        # fold kv heads into the batch and (head, token) into the row:
+        # q (B·Hkv, group·Sq, D); k/v (B·Hkv, S, D)
+        qg = q.reshape(B * Hkv, rows, D).contiguous()
+        kg = k.reshape(B * Hkv, S, D).contiguous()
+        vg = v.reshape(B * Hkv, S, D).contiguous()
+        lg = kv_length.to(torch.int32).repeat_interleave(Hkv)
+        o, m, l = decode_attention_folded(qg, kg, vg, lg, scale,
+                                          window=window, softcap=softcap)
+        shape = (B, Hq) if one else (B, Hq, Sq)
+        return o.reshape(*shape, D), m.reshape(shape), l.reshape(shape)
 
 
 def combine_partials(os: torch.Tensor, ms: torch.Tensor, ls: torch.Tensor):

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import live_mask
+from repro_torch.spans import span
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -232,34 +233,39 @@ def _moe_group_dispatch(x, gate_vals, experts, we_gate, we_up, we_down,
     E = we_gate.shape[0]
     C = moe_capacity(t, top_k, capacity_factor, E)
     dev = x.device
-    flat_e = experts.reshape(G, t * top_k)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    sorted_e = flat_e.gather(-1, order)
-    # rank within expert group = position − group start
-    group_start = torch.searchsorted(
-        sorted_e, torch.arange(E, device=dev).expand(G, E).contiguous())
-    pos_in_e = torch.arange(t * top_k, device=dev) \
-        - group_start.gather(-1, sorted_e)
-    keep = pos_in_e < C
-    slot = torch.where(keep, sorted_e * C + pos_in_e, E * C)  # overflow slot
-    tok = order // top_k
-    rows = x.gather(1, tok[..., None].expand(G, t * top_k, d))
-    # the overflow slot E·C takes every dropped row (which one lands is
-    # unspecified, as in the JAX package); it is cut off unread
-    buf = x.new_zeros((G, E * C + 1, d)).scatter(
-        1, slot[..., None].expand(G, t * top_k, d), rows)
-    # (G, E, C, d) → (E, G·C, d): one batched product an expert
-    buf = buf[:, :-1].reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
-    h = F.silu(torch.bmm(buf, we_gate)) * torch.bmm(buf, we_up)
-    y = torch.bmm(h, we_down).reshape(E, G, C, d).transpose(0, 1) \
-        .reshape(G, E * C, d)
-    idx = torch.clamp(slot, max=E * C - 1)
-    contrib = y.gather(1, idx[..., None].expand(G, t * top_k, d))
-    contrib = contrib.masked_fill(~keep[..., None], 0)
-    g = gate_vals.reshape(G, t * top_k).gather(-1, order)[..., None] \
-        .to(x.dtype)
-    out = torch.zeros_like(x).scatter_add(
-        1, tok[..., None].expand(G, t * top_k, d), contrib * g)
+    with span("moe.dispatch"):
+        flat_e = experts.reshape(G, t * top_k)
+        order = torch.argsort(flat_e, dim=-1, stable=True)
+        sorted_e = flat_e.gather(-1, order)
+        # rank within expert group = position − group start
+        group_start = torch.searchsorted(
+            sorted_e, torch.arange(E, device=dev).expand(G, E).contiguous())
+        pos_in_e = torch.arange(t * top_k, device=dev) \
+            - group_start.gather(-1, sorted_e)
+        keep = pos_in_e < C
+        slot = torch.where(keep, sorted_e * C + pos_in_e,
+                           E * C)                          # overflow slot
+        tok = order // top_k
+        rows = x.gather(1, tok[..., None].expand(G, t * top_k, d))
+        # the overflow slot E·C takes every dropped row (which one lands is
+        # unspecified, as in the JAX package); it is cut off unread
+        buf = x.new_zeros((G, E * C + 1, d)).scatter(
+            1, slot[..., None].expand(G, t * top_k, d), rows)
+        # (G, E, C, d) → (E, G·C, d): one batched product an expert
+        buf = buf[:, :-1].reshape(G, E, C, d).transpose(0, 1) \
+            .reshape(E, G * C, d)
+    with span("moe.experts"):
+        h = F.silu(torch.bmm(buf, we_gate)) * torch.bmm(buf, we_up)
+        y = torch.bmm(h, we_down)
+    with span("moe.combine"):
+        y = y.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+        idx = torch.clamp(slot, max=E * C - 1)
+        contrib = y.gather(1, idx[..., None].expand(G, t * top_k, d))
+        contrib = contrib.masked_fill(~keep[..., None], 0)
+        g = gate_vals.reshape(G, t * top_k).gather(-1, order)[..., None] \
+            .to(x.dtype)
+        out = torch.zeros_like(x).scatter_add(
+            1, tok[..., None].expand(G, t * top_k, d), contrib * g)
     return out, keep
 
 
@@ -283,8 +289,10 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we_gate: torch.Tensor,
     capacity are dropped (:func:`_moe_group_dispatch` also returns which
     were kept)."""
     T, d = x.shape
-    _, gate_vals, experts = _route(x, router_w, top_k)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    with span("moe.route"):
+        _, gate_vals, experts = _route(x, router_w, top_k)
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True) \
+            .clamp_min(1e-9)
     G = moe_groups(T)
     out, _ = _moe_group_dispatch(
         x.reshape(G, T // G, d), gate_vals.reshape(G, T // G, top_k),

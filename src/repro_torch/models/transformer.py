@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels._cuda import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.spans import span
 
 from . import params as P
 from .config import ModelConfig
@@ -143,9 +144,10 @@ def _attention(cfg: ModelConfig, p, x: torch.Tensor, tables, *,
     if cache is None:
         # the kernel writes (B, Hq, S, hd) through a (B, S, Hq, hd) buffer's
         # strides, so the reshape below needs no copy
-        out = blocked_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True, window=window,
-                                softcap=cfg.attn_softcap)
+        with span("attn.flash"):
+            out = blocked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=True,
+                                    window=window, softcap=cfg.attn_softcap)
         out = out.transpose(1, 2).reshape(B, S, Hq * hd)
     else:
         ck, cv, kv_len = cache
@@ -168,7 +170,8 @@ def _ffn(cfg: ModelConfig, p, x: torch.Tensor):
     flat = x.reshape(B * S, d)
     y = moe_ffn(flat, p.router, p.we_gate, p.we_up, p.we_down,
                 top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
-    aux = aux_load_balance_loss(flat, p.router, cfg.top_k)
+    with span("moe.aux_loss"):
+        aux = aux_load_balance_loss(flat, p.router, cfg.top_k)
     if cfg.shared_expert:
         y = y + swiglu(flat, p.ws_gate, p.ws_up, p.ws_down)
     return y.reshape(B, S, d), aux

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import api
+from repro_torch.spans import span
 
 
 def make_prefill_step(cfg):
@@ -18,8 +19,9 @@ def make_prefill_step(cfg):
 
     @torch.no_grad()
     def prefill(params, batch):
-        hidden, _ = api.forward_hidden(cfg, params, batch)
-        return api.apply_unembed(cfg, params, hidden[:, -1, :])
+        with span("serve.prefill"):
+            hidden, _ = api.forward_hidden(cfg, params, batch)
+            return api.apply_unembed(cfg, params, hidden[:, -1, :])
 
     return prefill
 
@@ -31,11 +33,13 @@ def make_decode_step(cfg):
 
     @torch.no_grad()
     def decode(params, batch, state, pos):
-        logits, new_state = api.forward_decode(cfg, params, batch, state, pos)
-        logits = logits[:, -1, :]
-        if cfg.padded_vocab != cfg.vocab:   # mask padded vocab columns
-            logits[:, cfg.vocab:] = -1e30
-        return logits, new_state
+        with span("serve.decode"):
+            logits, new_state = api.forward_decode(cfg, params, batch,
+                                                   state, pos)
+            logits = logits[:, -1, :]
+            if cfg.padded_vocab != cfg.vocab:   # mask padded vocab columns
+                logits[:, cfg.vocab:] = -1e30
+            return logits, new_state
 
     return decode
 
